@@ -39,6 +39,11 @@ def pytest_configure(config):
         "-m chaos, replay failures with CHAOS_SEED=<seed> "
         "(docs/testing.md)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's hand-written kernels); "
+        "skips on a host without one",
+    )
 
 
 # whole modules that are inherently heavy: every test either compiles

@@ -1,0 +1,111 @@
+"""The port stands alone: no module of dcos_commons_tpu_torch, and not
+chip_smoke.py, imports jax or anything of the JAX package
+(dcos_commons_tpu), and its entry points run on the card unless the
+caller asks for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "dcos_commons_tpu_torch")
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, dirs, files in os.walk(PKG):
+        dirs[:] = [d for d in dirs if d != "__pycache__"]
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _modules():
+    for path in _port_sources():
+        if not path.startswith(PKG):
+            continue
+        mod = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+        yield mod[: -len(".__init__")] if mod.endswith(".__init__") else mod
+
+
+_BLOCKED_IMPORT = r"""
+import importlib, sys
+
+class _NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith("jax."):
+            raise ImportError("jax is blocked in this process")
+        return None
+
+sys.meta_path.insert(0, _NoJax())
+sys.path.insert(0, sys.argv[1])
+for mod in sys.argv[2:]:
+    importlib.import_module(mod)
+leaked = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.")
+    or m == "dcos_commons_tpu" or m.startswith("dcos_commons_tpu.")
+)
+assert not leaked, leaked
+print("imported", len(sys.argv) - 2)
+"""
+
+
+def test_every_port_module_imports_without_jax():
+    mods = sorted(_modules())
+    assert "dcos_commons_tpu_torch.frameworks.serve_worker" in mods
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT, REPO, *mods],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert f"imported {len(mods)}" in out.stdout
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "dcos_commons_tpu"), (
+                f"{os.path.relpath(path, REPO)}:{node.lineno} imports {name}"
+            )
+
+
+def test_entry_points_default_to_the_card():
+    from dcos_commons_tpu_torch.device import resolve_device
+    from dcos_commons_tpu_torch.frameworks.serve_worker import build_server
+    from dcos_commons_tpu_torch.models import (
+        TransformerConfig,
+        init_kv_cache,
+        init_params,
+        params_from_jax,
+    )
+
+    assert resolve_device("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    config = TransformerConfig(vocab=16, d_model=16, n_layers=1,
+                               n_heads=2, d_ff=16)
+    for call in (
+        lambda: resolve_device(),
+        lambda: init_params(config),
+        lambda: init_kv_cache(config, 1, 8),
+        lambda: params_from_jax({"layers": {}}),
+        lambda: build_server({"VOCAB": "16"}, ready_file=""),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
