@@ -10,6 +10,10 @@ CUDA card).  Phases, each fatal on failure:
    shapes of the serving path, within the tolerances in ``TOL``; kernel,
    plain and library times (CUDA events) beside the least time the card
    could take (``bound_ms``).
+2b. The backward kernels K3 (dq) and K4 (dk/dv) against the plain
+   backward (``reference_attention_bwd``) at the flagship training shape
+   [192, 2048, 128] bf16 causal, at ragged shapes causal and not, f32
+   and bf16, and at K2's serving shape; with times as in phase 2.
 3. The slot-pool server (``KV_PAGE_TOKENS=0``) of the port's worker at
    the flagship width (bench.py ``flagship_config``: vocab 32768,
    d_model 2048, 16/16 heads, d_ff 8192, bf16; depth 12) answers
@@ -19,6 +23,19 @@ CUDA card).  Phases, each fatal on failure:
    K2 not (paged attention is plain PyTorch, as in the JAX package).
 5. Greedy outputs of the paged and slot paths are token-identical on a
    2-layer f32 model at the same width.
+6. Train-step parity: one ``make_train_step`` (AdamW) of a 2-layer f32
+   model at the flagship width on the card (kernels) against the same
+   step on the CPU (plain versions), same weights and batch.
+7. The port's train worker at the flagship width (bench.py
+   ``flagship_config``: 12 layers, seq 2048, remat full with one stored
+   layer, bf16) takes 6 steps from scratch, writes a checkpoint, and a
+   second run resumes from it to step 8; K1-K4 launch exactly the
+   counts the remat policy implies.  Then ``make_train_step`` at
+   bench.py's training batch (12) is timed: tokens/s, step ms, peak
+   device memory.  Every kernel is then held against its plain version
+   at each shape these train runs launched it at (K1 [24576, 2048] and
+   [4096, 2048] bf16, K2-K4 [192 or 32, 2048, 2048, 128] bf16 causal),
+   within ``TOL``.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -27,6 +44,7 @@ without the port beside it, the script fails before printing either.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -49,13 +67,23 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # rounded once to bf16 on both sides, so a tie may land one ulp
 # (2^-8 relative) apart.  K2 f32: sums of up to 960 products in
 # another order; bf16: inputs are exact in both, the f32 result is
-# rounded once.  lse: f32 on both sides.
+# rounded once.  lse: f32 on both sides.  K3/K4 against the plain
+# backward: f32 as the largest absolute error (sums of up to 2048
+# products in another order, twice nested: s and dp, then ds times k or
+# q); bf16 as the relative Frobenius error ||got - want|| / ||want||.
+# Both sides round ds and p to bf16 before the products, so the sound
+# kernels read 0 to 4.9e-5 on the card (PERF.md); a backward that keeps
+# ds and p in f32 reads 2.4e-3 to 2.7e-3 against the plain one at the
+# phase 2b shapes (tests/test_torch_ops.py measures it on the CPU), so
+# the limit sits between the two.
 TOL = {
     ("K1", torch.float32): (1e-5, 1e-5),
     ("K1", torch.bfloat16): (1.6e-2, 1.6e-2),
     ("K2", torch.float32): (2e-5, 2e-4),
     ("K2", torch.bfloat16): (1.6e-2, 1.6e-2),
     ("lse", torch.float32): (1e-4, 1e-5),
+    ("K3/K4", torch.float32): 1e-4,
+    ("K3/K4", torch.bfloat16): 5e-4,
 }
 
 FLAGSHIP_ENV = {
@@ -170,7 +198,7 @@ def k2_pairs(sq, sk, causal):
     return int(np.minimum(i + 1, sk).sum())
 
 
-def k2_case(bh, sq, sk, hd, dtype, causal, gen):
+def k2_case(bh, sq, sk, hd, dtype, causal, gen, iters=20):
     from dcos_commons_tpu_torch.ops import attention
 
     kern = getattr(attention.flash_fwd_kernel, "inner",
@@ -187,20 +215,121 @@ def k2_case(bh, sq, sk, hd, dtype, causal, gen):
                 TOL[("K2", dtype)])
     check(tag + " lse", lse, attention.reference_lse(q4, k4, causal),
           TOL[("lse", torch.float32)])
-    ms = time_ms(lambda: kern(q, k, v, causal, False))
+    ms = time_ms(lambda: kern(q, k, v, causal, False), iters)
     plain_ms = time_ms(
-        lambda: attention.reference_attention(q4, k4, v4, causal)
+        lambda: attention.reference_attention(q4, k4, v4, causal), iters
     )
     lib_ms = None
     if sq == sk or not causal:
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = time_ms(lambda: sdpa(q4, k4, v4, is_causal=causal))
+        lib_ms = time_ms(lambda: sdpa(q4, k4, v4, is_causal=causal), iters)
     item = q.element_size()
     n_bytes = (2 * bh * sq * hd + 2 * bh * sk * hd) * item
     b_ms, b_by = bound(n_bytes, 4 * hd * bh * k2_pairs(sq, sk, causal),
                        dtype)
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=b_by)
+
+
+def k34_case(bh, sq, sk, hd, dtype, causal, gen, iters=20):
+    """K3 and K4 against the plain backward, on K2's forward outputs.
+    Returns (K3 result, K4 result); plain and library times cover the
+    whole backward (dq, dk and dv) and stand on both."""
+    from dcos_commons_tpu_torch.ops import attention
+
+    fwd = getattr(attention.flash_fwd_kernel, "inner",
+                  attention.flash_fwd_kernel)
+    k3 = getattr(attention.flash_dq_kernel, "inner",
+                 attention.flash_dq_kernel)
+    k4 = getattr(attention.flash_dkv_kernel, "inner",
+                 attention.flash_dkv_kernel)
+    q, do = (torch.randn(bh, sq, hd, device="cuda", generator=gen).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(bh, sk, hd, device="cuda", generator=gen).to(dtype)
+            for _ in range(2))
+    o, lse = fwd(q, k, v, causal, True)
+    di = (do.float() * o.float()).sum(-1)
+    dq = k3(q, k, v, do, lse, di, causal)
+    dk, dv = k4(q, k, v, do, lse, di, causal)
+    torch.cuda.synchronize()
+    q4, k4_, v4, o4, do4 = (t[None] for t in (q, k, v, o, do))
+    want = attention.reference_attention_bwd(q4, k4_, v4, o4, lse, do4,
+                                             causal)
+    tag = f"bh={bh} sq={sq} sk={sk} hd={hd} causal={causal} {dtype}"
+    errs = {}
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        diff = got.float() - w[0].float()
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"K3/K4 {tag} {name}: not finite")
+        max_abs = diff.abs().max().item()
+        metric = (max_abs if dtype == torch.float32
+                  else (diff.norm() / w[0].float().norm()).item())
+        if metric > TOL[("K3/K4", dtype)]:
+            raise AssertionError(
+                f"K3/K4 {tag} {name}: error {metric:.3e} beyond "
+                f"{TOL[('K3/K4', dtype)]}"
+            )
+        errs[name] = (max_abs, metric)
+    del want
+    plain_ms = time_ms(
+        lambda: attention.reference_attention_bwd(q4, k4_, v4, o4, lse, do4,
+                                                  causal),
+        iters=max(2, iters // 4),
+    )
+    lib_ms = None
+    if sq == sk or not causal:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (q4, k4_, v4)]
+
+        def fwd_bwd():
+            torch.autograd.grad(sdpa(*leaves, is_causal=causal), leaves, do4)
+
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: sdpa(*leaves, is_causal=causal), iters)
+        lib_ms = time_ms(fwd_bwd, iters) - fwd_ms
+    item = q.element_size()
+    pairs = bh * k2_pairs(sq, sk, causal)
+    rows = 2 * bh * sq * 4                      # lse and di, f32
+    out = []
+    for name, fn, flops, n_bytes, err_names in (
+        ("K3", lambda: k3(q, k, v, do, lse, di, causal), 6 * hd * pairs,
+         (3 * bh * sq * hd + 2 * bh * sk * hd) * item + rows, ("dq",)),
+        ("K4", lambda: k4(q, k, v, do, lse, di, causal), 8 * hd * pairs,
+         (2 * bh * sq * hd + 4 * bh * sk * hd) * item + rows, ("dk", "dv")),
+    ):
+        b_ms, b_by = bound(n_bytes, flops, dtype)
+        out.append(dict(
+            err=max(errs[e][0] for e in err_names),
+            metric=max(errs[e][1] for e in err_names),
+            ms=time_ms(fn, iters), plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by,
+        ))
+    return out
+
+
+def phase_backward(gen):
+    """Phase 2b: K3 and K4 at the training shape, ragged shapes and
+    K2's serving shape.  Returns the largest max-abs error of each and
+    the results at the training shape."""
+    errs = {"K3": 0.0, "K4": 0.0}
+    shapes = [(192, 2048, 2048, 128, True, torch.bfloat16)]
+    for bh, s, hd in ((2, 200, 128), (8, 100, 64)):
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                shapes.append((bh, s, s, hd, causal, dtype))
+    shapes.append((16, 257, 257, 128, True, torch.bfloat16))
+    train_shape = None
+    for bh, sq, sk, hd, causal, dtype in shapes:
+        r3, r4 = k34_case(bh, sq, sk, hd, dtype, causal, gen,
+                          iters=5 if sq > 1000 else 20)
+        for name, r in (("K3", r3), ("K4", r4)):
+            errs[name] = max(errs[name], r["err"])
+            log(f"{name} flash_bwd [{bh}, {sq}, {sk}, {hd}] causal={causal} "
+                f"{dtype}: checked error {r['metric']:.3e}  {fmt(r)}")
+        if train_shape is None:
+            train_shape = (r3, r4)
+    return errs, train_shape
 
 
 def fmt(r):
@@ -365,6 +494,238 @@ def cross_path_check():
     log(f"cross-path f32: {len(prompts)} prompts x {n_new} tokens identical")
 
 
+# -- phases 6-7: the train path ------------------------------------------
+
+TRAIN_ENV = {
+    "VOCAB": "32768", "D_MODEL": "2048", "N_LAYERS": "12",
+    "N_HEADS": "16", "N_KV_HEADS": "16", "D_FF": "8192", "SEQ_LEN": "2048",
+    "TORCH_DEVICE": "cuda", "KEEPALIVE_S": "0",
+}
+# bench.py flagship_config: full remat (the config's default) with the
+# last layer stored
+NO_REMAT_LAYERS = 1
+TRAIN_BATCH = 12          # bench.py bench_transformer's batch
+LR = 3e-4
+
+
+def launches_per_step(n_layers, no_remat_layers):
+    """Kernel launches of one train step under full remat with the last
+    ``no_remat_layers`` stored: the forward runs every layer (K1 twice
+    a layer plus the final norm, K2 once); the backward recomputes the
+    forward of each checkpointed layer (K1 twice, K2 once; the norm
+    backward is autograd on the plain version, as in the JAX package)
+    and runs K3 and K4 once a layer."""
+    recomputed = n_layers - no_remat_layers
+    return {"K1": 2 * n_layers + 1 + 2 * recomputed,
+            "K2": n_layers + recomputed, "K3": n_layers, "K4": n_layers}
+
+
+def train_step_parity():
+    """Phase 6: one make_train_step of a 2-layer f32 model at the
+    flagship width, batch 2, seq 256, on the card and on the CPU from
+    the same weights and batch.  TF32 stays off
+    (``torch.backends.cuda.matmul.allow_tf32`` is False), so both sides
+    compute in f32.  Tolerances: the loss within 1e-5 relative and each
+    gradient leaf within 1e-4 relative Frobenius error (f32 sums in
+    another order).  After the AdamW step every param whose gradient is
+    at least 100 eps (1e-6) agrees within 1e-6 + 1e-5 |p|.  Adam's first
+    step moves a param by lr * g / (|g| + eps), whose slope lr * eps /
+    (|g| + eps)^2 turns the gradients' rounding differences (about 1e-8
+    absolute here) into step differences of up to 2 lr where |g| is
+    near eps = 1e-8; those params are held to that 2 lr bound only."""
+    from dcos_commons_tpu_torch.models.transformer import (
+        adamw, config_from_env, init_params, loss_fn, make_train_step,
+    )
+    from dcos_commons_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 6 needs TF32 off")
+    env = dict(TRAIN_ENV, N_LAYERS="2", SEQ_LEN="256")
+    config = config_from_env(env, dtype=torch.float32,
+                             no_remat_layers=NO_REMAT_LAYERS)
+    cpu_params = init_params(config, seed=3, device="cpu")
+    toks = np.random.default_rng(3).integers(0, config.vocab, (2, 257))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = (cpu_params if dev == "cpu"
+                  else tree_map(lambda t: t.to(dev), cpu_params))
+        tokens = torch.from_numpy(toks[:, :-1]).to(dev)
+        targets = torch.from_numpy(toks[:, 1:]).to(dev)
+        optimizer = adamw(params, LR)
+        leaves = tree_leaves(params)
+        loss = loss_fn(config, params, tokens, targets)
+        grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+        step_loss = make_train_step(config, optimizer)(params, tokens,
+                                                       targets)
+        out[dev] = (loss.item(), grads, step_loss.item(),
+                    [p.detach().cpu() for p in leaves])
+    (loss_g, grads_g, step_g, params_g) = out["cuda"]
+    (loss_c, grads_c, step_c, params_c) = out["cpu"]
+    if not (np.isfinite(loss_g) and abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+            and abs(step_g - step_c) <= 1e-5 * abs(step_c)):
+        raise AssertionError(f"train loss card {loss_g} / {step_g} vs cpu "
+                             f"{loss_c} / {step_c}")
+    grad_err = max(((g - c).norm() / c.norm()).item()
+                   for g, c in zip(grads_g, grads_c))
+    if grad_err > 1e-4:
+        raise AssertionError(f"gradients differ: rel err {grad_err:.3e}")
+    far, near_eps, total, max_diff, max_tight = 0, 0, 0, 0.0, 0.0
+    for g, c, grad in zip(params_g, params_c, grads_c):
+        diff = (g - c).abs()
+        tight = grad.abs() >= 1e-6
+        far += int((diff > 1e-6 + 1e-5 * c.abs())[tight].sum())
+        near_eps += int((~tight).sum())
+        total += c.numel()
+        max_diff = max(max_diff, diff.max().item())
+        if tight.any():
+            max_tight = max(max_tight, diff[tight].max().item())
+    if far or max_diff > 2 * LR * (1 + 1e-4) + 1e-6:
+        raise AssertionError(f"params after the step: {far} with |g| >= "
+                             f"1e-6 apart, max {max_diff:.3e}")
+    log(f"train-step parity (2 layers, f32, TF32 off): loss card {loss_g:.6f}"
+        f" cpu {loss_c:.6f}; grad rel err {grad_err:.3e}; params after "
+        f"AdamW: max |diff| {max_tight:.3e} where |g| >= 1e-6, "
+        f"{max_diff:.3e} over all; {near_eps}/{total} params with |g| < "
+        f"1e-6")
+
+
+def run_train_worker(env, logs, start, steps):
+    """One in-process run of the port's train worker; returns the
+    launches by kernel, after checking the resume point, the losses
+    and the launch counts against ``launches_per_step``."""
+    from dcos_commons_tpu_torch.frameworks.train_worker import train
+
+    torch.cuda.synchronize()
+    for shape_log in logs.values():
+        shape_log.reset()
+    t0 = time.monotonic()
+    result = train(dict(env, TRAIN_STEPS=str(steps)), log=log,
+                   no_remat_layers=NO_REMAT_LAYERS)
+    torch.cuda.synchronize()
+    launches = {n: s.inner.launches for n, s in logs.items()}
+    wall = time.monotonic() - t0
+    if result.start != start or result.checkpoint_errors:
+        raise AssertionError(f"train worker started at {result.start} "
+                             f"(want {start}); {result.checkpoint_errors}")
+    if not result.losses or not all(np.isfinite(list(result.losses.values()))):
+        raise AssertionError(f"train losses {result.losses}")
+    per_step = launches_per_step(int(env["N_LAYERS"]), NO_REMAT_LAYERS)
+    want = {n: per_step[n] * (steps - start) for n in logs}
+    if launches != want:
+        raise AssertionError(f"train launches {launches}, want {want}")
+    log(f"train worker steps {start}..{steps - 1}: losses {result.losses}; "
+        f"{wall:.1f} s with checkpoint IO; launches {launches} "
+        f"(per step {per_step})")
+    return launches
+
+
+def time_train_step(logs, warmup=2, steps=5):
+    """make_train_step at bench.py's training shape: tokens/s, step ms
+    and peak device memory (host clock around synchronised steps)."""
+    from dcos_commons_tpu_torch.models.transformer import (
+        adamw, config_from_env, init_params, make_train_step,
+    )
+    from dcos_commons_tpu_torch.utils import synthetic_tokens
+
+    config = config_from_env(TRAIN_ENV, dtype=torch.bfloat16,
+                             no_remat_layers=NO_REMAT_LAYERS)
+    params = init_params(config, seed=0, device="cuda")
+    step = make_train_step(config, adamw(params, LR))
+    tokens, targets = synthetic_tokens(
+        TRAIN_BATCH, config.max_seq, config.vocab,
+        torch.Generator(device="cuda").manual_seed(1),
+    )
+    for _ in range(warmup):
+        step(params, tokens, targets)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for shape_log in logs.values():
+        shape_log.reset()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = step(params, tokens, targets)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {n: s.inner.launches for n, s in logs.items()}
+    per_step = launches_per_step(config.n_layers, config.no_remat_layers)
+    if launches != {n: per_step[n] * steps for n in logs}:
+        raise AssertionError(f"timed steps launched {launches}")
+    if not np.isfinite(float(loss)):
+        raise AssertionError(f"train loss {float(loss)}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train step [batch {TRAIN_BATCH}, seq {config.max_seq}] bf16, "
+        f"remat full + 1 stored layer: {dt / steps * 1e3:.1f} ms/step, "
+        f"{TRAIN_BATCH * config.max_seq * steps / dt:,.0f} tokens/s, peak "
+        f"device memory {peak / 2**30:.2f} GiB, loss {float(loss):.4f}")
+    del params, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train(logs):
+    """Phase 7: the train worker from scratch, its resume, and the timed
+    step.  Returns the launches by kernel over the three runs and the
+    shapes each kernel was launched at in them."""
+    ckpt = os.path.join(ROOT, "build", "smoke", "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    # a flagship train-state checkpoint is params + two moments widened
+    # to f32: 872,466,432 x 3 x 4 bytes = 10.5 GB; with CHECKPOINT_KEEP
+    # 1 the next save lands before the last is pruned
+    free = shutil.disk_usage(os.path.join(ROOT, "build")).free
+    log(f"disk free under build/: {free / 2**30:.1f} GiB")
+    if free < 22e9:
+        raise AssertionError("phase 7 needs 22 GB of disk for two "
+                             "flagship checkpoints")
+    env = dict(TRAIN_ENV, CHECKPOINT_DIR=ckpt, CHECKPOINT_KEEP="1",
+               SANDBOX=os.path.join(ROOT, "build", "smoke"))
+    shapes = {n: set() for n in logs}
+
+    def note_shapes():
+        for n, shape_log in logs.items():
+            shapes[n].update(shape_log.shapes)
+
+    total = run_train_worker(env, logs, 0, 6)
+    note_shapes()
+    names = sorted(n for n in os.listdir(ckpt) if n.startswith("step_"))
+    if not names or not names[-1].startswith("step_0000000006"):
+        raise AssertionError(f"no step-6 checkpoint: {names}")
+    for run in (lambda: run_train_worker(env, logs, 6, 8),
+                lambda: time_train_step(logs)):
+        launches = run()
+        note_shapes()
+        total = {n: total[n] + launches[n] for n in total}
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return total, shapes
+
+
+def check_train_shapes(shapes, gen, checked):
+    """Each kernel against its plain version at every shape the train
+    path launched it at, but those in ``checked``.  Returns the largest
+    max-abs error of each kernel."""
+    errs = {n: 0.0 for n in shapes}
+    for rows, d, dtype in sorted(shapes["K1"] - checked["K1"], key=str):
+        r = k1_case(rows, d, dtype, gen)
+        errs["K1"] = max(errs["K1"], r["err"])
+        log(f"K1 rms_norm at train shape [{rows}, {d}] {dtype}: {fmt(r)}")
+    for bh, sq, sk, hd, causal, dtype in sorted(shapes["K2"] - checked["K2"],
+                                                key=str):
+        r = k2_case(bh, sq, sk, hd, dtype, causal, gen, iters=5)
+        errs["K2"] = max(errs["K2"], r["err"])
+        log(f"K2 flash_fwd at train shape [{bh}, {sq}, {sk}, {hd}] "
+            f"causal={causal} {dtype}: {fmt(r)}")
+    if shapes["K3"] != shapes["K4"]:
+        raise AssertionError(f"K3 at {shapes['K3']}, K4 at {shapes['K4']}")
+    for bh, sq, sk, hd, causal, dtype in sorted(shapes["K3"] - checked["K3"],
+                                                key=str):
+        for name, r in zip(("K3", "K4"), k34_case(bh, sq, sk, hd, dtype,
+                                                   causal, gen, iters=5)):
+            errs[name] = max(errs[name], r["err"])
+            log(f"{name} at train shape [{bh}, {sq}, {sk}, {hd}] "
+                f"causal={causal} {dtype}: checked error "
+                f"{r['metric']:.3e}  {fmt(r)}")
+    return errs
+
+
 def main():
     if not torch.cuda.is_available():
         log("CUDA is not available: chip_smoke needs one NVIDIA card")
@@ -404,9 +765,18 @@ def main():
                            q.shape[0], q.shape[1], k.shape[1], q.shape[2],
                            bool(causal), q.dtype)),
     }
+    for name, fn in (("K3", "flash_dq_kernel"), ("K4", "flash_dkv_kernel")):
+        logs[name] = ShapeLog(
+            attention, fn,
+            lambda q, k, v, do, lse, di, causal: (
+                q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                bool(causal), q.dtype))
 
     # phase 2
     errs = phase_kernels(gen)
+    # phase 2b
+    bwd_errs, (r3, r4) = phase_backward(gen)
+    errs.update(bwd_errs)
 
     # phase 3: slot pool at the flagship width
     sandbox = os.path.join(ROOT, "build", "smoke")
@@ -415,8 +785,9 @@ def main():
     env = dict(FLAGSHIP_ENV, KV_PAGE_TOKENS="0", SANDBOX=sandbox)
     slot_replies, slot_launches, stats, wall = serve(env, requests, logs)
     report_serving("slot pool", slot_replies, slot_launches, stats, wall)
-    if slot_launches["K1"] == 0 or slot_launches["K2"] == 0:
-        raise AssertionError(f"slot path skipped a kernel: {slot_launches}")
+    if (slot_launches["K1"] == 0 or slot_launches["K2"] == 0
+            or slot_launches["K3"] or slot_launches["K4"]):
+        raise AssertionError(f"slot path kernels: {slot_launches}")
     k2_shape = logs["K2"].busiest()
     k1_slot_shapes = dict(logs["K1"].shapes)
 
@@ -425,7 +796,8 @@ def main():
                PREFILL_CHUNK_TOKENS="64", SANDBOX=sandbox)
     paged_replies, paged_launches, stats, wall = serve(env, requests, logs)
     report_serving("paged", paged_replies, paged_launches, stats, wall)
-    if paged_launches["K1"] == 0 or paged_launches["K2"] != 0:
+    if (paged_launches["K1"] == 0 or paged_launches["K2"]
+            or paged_launches["K3"] or paged_launches["K4"]):
         raise AssertionError(f"paged path kernels: {paged_launches}")
     if not stats.get("prefix_cache_hit_rate"):
         raise AssertionError("the shared prefix never hit the prefix cache")
@@ -446,30 +818,71 @@ def main():
     # phase 5: exact cross-path check in f32
     cross_path_check()
 
-    # the kernels line: timings at each kernel's busiest main-path shape
+    # phase 6: the train step on the card against the CPU
+    train_step_parity()
+
+    # phase 7: the train worker at the flagship width, then the timed step
+    train_launches, train_shapes = phase_train(logs)
+    launches = {n: slot_launches[n] + paged_launches[n] + train_launches[n]
+                for n in logs}
+
+    # the kernels line: every kernel at the flagship training shape
+    # (bench.py batch 12: K1 [24576, 2048], K2-K4 [192, 2048, 2048, 128]),
+    # which the timed step launched; K3/K4 were checked there in 2b
+    seq = int(TRAIN_ENV["SEQ_LEN"])
+    k1_train = (TRAIN_BATCH * seq, 2048, torch.bfloat16)
+    attn_train = (TRAIN_BATCH * 16, seq, seq, 128, True, torch.bfloat16)
+    if (k1_train not in train_shapes["K1"]
+            or attn_train not in train_shapes["K2"]
+            or attn_train not in train_shapes["K3"]):
+        raise AssertionError(f"train path shapes {train_shapes}")
+    r1 = k1_case(*k1_train, gen)
+    log(f"K1 at the training shape {list(k1_train)}: {fmt(r1)}")
+    r2 = k2_case(*attn_train[:4], torch.bfloat16, True, gen)
+    log(f"K2 at the training shape {list(attn_train[:4])}: {fmt(r2)}")
+    # ... and at every other shape the train path gave it
+    checked = {
+        "K1": {k1_train} | {(rows, 2048, dt) for rows in (1, 8, 64, 960)
+                            for dt in (torch.bfloat16, torch.float32)},
+        "K2": {attn_train}, "K3": {attn_train}, "K4": {attn_train},
+    }
+    for name, err in check_train_shapes(train_shapes, gen, checked).items():
+        errs[name] = max(errs[name], err)
     rows, d, dt = k1_shape
-    r1 = k1_case(rows, d, dt, gen)
+    log(f"K1 at its busiest serving shape {k1_shape}: "
+        f"{fmt(k1_case(rows, d, dt, gen))}")
     bh, sq, sk, hd, causal, dt2 = k2_shape
-    r2 = k2_case(bh, sq, sk, hd, dt2, causal, gen)
-    log(f"K1 at main-path shape {k1_shape}: {fmt(r1)}")
-    log(f"K2 at main-path shape {k2_shape}: {fmt(r2)}")
+    log(f"K2 at its busiest serving shape {k2_shape}: "
+        f"{fmt(k2_case(bh, sq, sk, hd, dt2, causal, gen))}")
     pkg = "dcos_commons_tpu_torch"
     kernels = [
         dict(name="K1 rms_norm", route="triton",
              source=f"{pkg}/ops/rmsnorm.py",
              replaces="dcos_commons_tpu/ops/rmsnorm.py:16",
-             launches=slot_launches["K1"] + paged_launches["K1"],
+             launches=launches["K1"],
              max_abs_err=max(errs["K1"], r1["err"]), ms=r1["ms"],
              plain_ms=r1["plain_ms"], bound_ms=r1["bound_ms"],
              bound_by=r1["bound_by"], library_ms=r1["library_ms"]),
         dict(name="K2 flash_fwd", route="cuda",
              source=f"{pkg}/csrc/flash_fwd.cu",
              replaces="dcos_commons_tpu/ops/attention.py:33",
-             launches=slot_launches["K2"] + paged_launches["K2"],
+             launches=launches["K2"],
              max_abs_err=max(errs["K2"], r2["err"]), ms=r2["ms"],
              plain_ms=r2["plain_ms"], bound_ms=r2["bound_ms"],
              bound_by=r2["bound_by"], library_ms=r2["library_ms"]),
     ]
+    for name, label, line, r in (
+        ("K3", "K3 flash_dq", 108, r3), ("K4", "K4 flash_dkv", 172, r4),
+    ):
+        # plain_ms and library_ms time the whole backward (dq, dk, dv):
+        # the plain version and SDPA's backward compute both kernels'
+        # outputs in one call
+        kernels.append(dict(
+            name=label, route="cuda", source=f"{pkg}/csrc/flash_bwd.cu",
+            replaces=f"dcos_commons_tpu/ops/attention.py:{line}",
+            launches=launches[name], max_abs_err=errs[name], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     log(f"total {time.monotonic() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,16 @@
+"""The training data pipeline: memory-mapped token shards onto the
+card."""
+
+from dcos_commons_tpu_torch.data.loader import (
+    DevicePrefetcher,
+    TokenDataset,
+    list_shards,
+    write_token_shard,
+)
+
+__all__ = [
+    "DevicePrefetcher",
+    "TokenDataset",
+    "list_shards",
+    "write_token_shard",
+]

@@ -16,9 +16,9 @@ paths: the paged arena by default, the slot pool with
 ``TORCH_DEVICE`` (default ``cuda``) picks the device, the counterpart
 of the JAX worker's ``JAX_PLATFORMS=cpu`` switch: bf16 on the card,
 f32 on the CPU.  Without CUDA and without ``TORCH_DEVICE=cpu`` the
-worker fails to start.  Weights are random from seed 0;
-``CHECKPOINT_DIR`` raises until the checkpoint module is ported (the
-training slice).
+worker fails to start.  Weights are random from seed 0, or, with
+``CHECKPOINT_DIR``, the params of the train worker's latest checkpoint
+(either package's: the file format is shared).
 
 Run: ``python -m dcos_commons_tpu_torch.frameworks.serve_worker`` from
 the repo root (or the file path).  ``build_server(env)`` does all the
@@ -81,6 +81,11 @@ def build_server(env: Mapping[str, str],
     from dcos_commons_tpu_torch.device import resolve_device
     from dcos_commons_tpu_torch.metrics.registry import Metrics
     from dcos_commons_tpu_torch.models import config_from_env, init_params
+    from dcos_commons_tpu_torch.models.transformer import adamw_layout
+    from dcos_commons_tpu_torch.utils.checkpoint import (
+        SKIP,
+        restore_checkpoint,
+    )
     from dcos_commons_tpu_torch.serve.pool import PagedPoolModel, PoolModel
 
     device = resolve_device(env.get("TORCH_DEVICE") or "cuda")
@@ -95,12 +100,19 @@ def build_server(env: Mapping[str, str],
     slots = int(env.get("SERVE_SLOTS") or 0) or batch
     new_tokens = int(env.get("MAX_NEW_TOKENS", "32"))
 
-    if env.get("CHECKPOINT_DIR", ""):
-        raise NotImplementedError(
-            "CHECKPOINT_DIR: the checkpoint module is not ported yet; it "
-            "comes with the training slice (ROADMAP queue 1)"
-        )
     params = init_params(config, seed=0, device=device)
+    ckpt_dir = env.get("CHECKPOINT_DIR", "")
+    if ckpt_dir:
+        # serve the TRAINED weights when the train worker's checkpoint
+        # exists.  Its tree is {"params", "opt_state"}, flattened with
+        # sorted keys, so the optimizer state's 1 + 2n leaves come
+        # FIRST: the params are read at their true offsets through the
+        # whole train-state layout, the optimizer's leaves skipped.
+        like = {"params": params, "opt_state": adamw_layout(params, SKIP)}
+        state, step = restore_checkpoint(ckpt_dir, like)
+        if step is not None:
+            params = state["params"]
+            log(f"restored checkpoint step {step}")
     if env.get("WEIGHT_DTYPE", "native") == "int8":
         from dcos_commons_tpu_torch.models import quantize_params_int8
 

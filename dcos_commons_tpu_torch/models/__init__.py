@@ -1,8 +1,13 @@
 """The flagship transformer in PyTorch: forward, KV-cache decode (slot
-pool and paged arena), int8 weights, and the bridge that carries the
-JAX package's weights across."""
+pool and paged arena), int8 weights, the train step (loss, remat,
+gradient accumulation, AdamW), and the bridge that carries weights and
+train state between the JAX package and the port."""
 
-from dcos_commons_tpu_torch.models.bridge import params_from_jax
+from dcos_commons_tpu_torch.models.bridge import (
+    params_from_jax,
+    params_to_jax,
+    train_state_to_jax,
+)
 from dcos_commons_tpu_torch.models.decode import (
     decode_step,
     generate,
@@ -21,13 +26,19 @@ from dcos_commons_tpu_torch.models.quantize import (
 )
 from dcos_commons_tpu_torch.models.transformer import (
     TransformerConfig,
+    adamw,
     config_from_env,
     forward,
     init_params,
+    load_train_state,
+    loss_fn,
+    make_train_step,
+    train_state,
 )
 
 __all__ = [
     "TransformerConfig",
+    "adamw",
     "config_from_env",
     "decode_step",
     "dequantize_weight",
@@ -36,12 +47,18 @@ __all__ = [
     "init_kv_cache",
     "init_paged_kv_cache",
     "init_params",
+    "load_train_state",
+    "loss_fn",
+    "make_train_step",
     "paged_decode_step",
     "paged_prefill_chunk",
     "params_from_jax",
+    "params_to_jax",
     "prefill",
     "prefill_into_slot",
     "quantize_params_int8",
     "quantize_weight",
     "sample_token",
+    "train_state",
+    "train_state_to_jax",
 ]

@@ -1,12 +1,20 @@
-"""Weights carried across from the JAX package.
+"""Weights and train state carried between the JAX package and the port.
 
 ``params_from_jax`` takes the JAX package's flagship param tree as
 numpy arrays (or anything ``np.asarray`` reads, such as JAX arrays):
 ``embed``, ``layers`` with every leaf stacked on a leading
 ``n_layers`` axis, ``final_norm``; int8 ``{"q", "scale"}`` leaves
 included.  It returns the port's tree of the same shape, so both
-packages compute the same function of the same weights.  The reverse
-direction comes with the training slice (checkpoints).
+packages compute the same function of the same weights.
+
+``params_to_jax`` and ``train_state_to_jax`` go the other way, to trees
+of numpy arrays: the params, and ``{"params", "opt_state"}`` with the
+optimizer state in ``optax.adamw``'s layout ``((count, mu, nu), (),
+())``, whose leaves are those of the JAX package's optax state in its
+flatten order (``jax.tree.unflatten`` onto the optax state's structure
+rebuilds it).  bf16 leaves come back as ml_dtypes ``bfloat16`` arrays
+when ml_dtypes is installed (it comes with jax), else as their exact
+float32 widening.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import numpy as np
 import torch
 
 from dcos_commons_tpu_torch.device import resolve_device
+from dcos_commons_tpu_torch.utils.tree import tree_map
 
 Params = Dict[str, Any]
 _DENSE_LAYER_LEAVES = {
@@ -60,4 +69,33 @@ def params_from_jax(tree: Params, device=None,
         "layers": {name: _leaf(leaf, dev, dtype)
                    for name, leaf in tree["layers"].items()},
         "final_norm": _leaf(tree["final_norm"], dev, dtype),
+    }
+
+
+def _to_numpy(t) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    wide = t.float().numpy()
+    try:
+        from ml_dtypes import bfloat16
+    except ImportError:
+        return wide
+    # f32 holds every bf16 value exactly, so this cast is exact
+    return wide.astype(bfloat16)
+
+
+def params_to_jax(params: Params) -> Params:
+    """The port's param tree -> the same tree of numpy arrays."""
+    return tree_map(_to_numpy, params)
+
+
+def train_state_to_jax(params: Params, optimizer) -> Params:
+    """Params and AdamW state -> ``{"params", "opt_state"}`` of numpy
+    arrays in the JAX train worker's layout."""
+    from dcos_commons_tpu_torch.models.transformer import adamw_state
+
+    return {
+        "params": params_to_jax(params),
+        "opt_state": tree_map(_to_numpy, adamw_state(optimizer, params)),
     }

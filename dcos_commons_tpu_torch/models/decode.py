@@ -110,7 +110,7 @@ def _kv_entries(cache: Cache, k: torch.Tensor, v: torch.Tensor):
     return (("k", k), ("v", v))
 
 
-def _last_logits(params, x, true_len) -> torch.Tensor:
+def _last_logits(config, params, x, true_len) -> torch.Tensor:
     """Logits [b, vocab] f32 at each row's last real position."""
     b, s, _ = x.shape
     if true_len is None:
@@ -121,7 +121,7 @@ def _last_logits(params, x, true_len) -> torch.Tensor:
             x_last = x[:, last]
         else:
             x_last = x[torch.arange(b, device=x.device), last]
-    return _logits(params, x_last)
+    return _logits(config, params, x_last)
 
 
 def _prefill_trunk(config, params, tokens, write):
@@ -176,7 +176,7 @@ def prefill(
             cache[name][i, :, :s] = val
 
     x = _prefill_trunk(config, params, tokens, write)
-    return _last_logits(params, x, true_len), cache
+    return _last_logits(config, params, x, true_len), cache
 
 
 def prefill_into_slot(
@@ -211,7 +211,7 @@ def prefill_into_slot(
             buf[i, rows, s:] = 0
 
     x = _prefill_trunk(config, params, tokens, write)
-    return _last_logits(params, x, true_len), cache
+    return _last_logits(config, params, x, true_len), cache
 
 
 def sample_token(logits: torch.Tensor, temperature: float,
@@ -305,7 +305,7 @@ def decode_step(
 
     x = _decode_trunk(config, params, cache, x, positions, store,
                       lambda i, name: cache[name][i], valid)
-    return _logits(params, x[:, 0]), cache
+    return _logits(config, params, x[:, 0]), cache
 
 
 def paged_prefill_chunk(
@@ -355,7 +355,7 @@ def paged_prefill_chunk(
 
     x = _decode_trunk(config, params, cache, x, positions, store, gather,
                       valid)
-    return _logits(params, x[:, true_len - 1]), cache
+    return _logits(config, params, x[:, true_len - 1]), cache
 
 
 def paged_decode_step(
@@ -395,7 +395,7 @@ def paged_decode_step(
 
     x = _decode_trunk(config, params, cache, x, positions, store, gather,
                       valid)
-    return _logits(params, x[:, 0]), cache
+    return _logits(config, params, x[:, 0]), cache
 
 
 def generate(

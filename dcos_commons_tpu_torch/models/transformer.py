@@ -9,25 +9,43 @@ leaf.  The JAX ``lax.scan`` over layers is a Python loop over that
 axis.  Numerics follow the reference: activations in ``config.dtype``
 (bf16 on the card), RMSNorm statistics in f32 (``ops.rms_norm``, kernel
 K1), half-split RoPE, GQA by ``repeat_interleave`` (``jnp.repeat``),
-flash attention (kernel K2), SwiGLU, tied f32-logit head.
+flash attention (kernel K2 forward, K3/K4 backward), SwiGLU, tied
+f32-logit head.
+
+The training half: ``loss_fn`` (with the sequence-chunked loss),
+layer remat through ``torch.utils.checkpoint`` with the reference's
+``remat_policy`` and ``no_remat_layers`` semantics, ``make_train_step``
+with gradient accumulation, and ``adamw``, the counterpart of
+``optax.adamw(3e-4)``.  ``adamw_state`` and ``load_adamw_state`` lay the
+optimizer's state out as optax's, so checkpoints cross between the
+packages.
 
 Not in this slice, and raising ``NotImplementedError``: MoE layers
 (``n_experts > 0``), ring and Ulysses sequence parallelism (ROADMAP
-queue 1, "MoE and long-context").
+queue 1, "MoE and long-context"), a mesh (queue 1, "Multi-GPU train
+step").
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from dcos_commons_tpu_torch.device import resolve_device
 from dcos_commons_tpu_torch.models.quantize import dequantize_weight as dq
 from dcos_commons_tpu_torch.ops.attention import flash_attention
 from dcos_commons_tpu_torch.ops.rmsnorm import rms_norm
+from dcos_commons_tpu_torch.parallel.pipeline import split_microbatches
+from dcos_commons_tpu_torch.utils.tree import (
+    tree_flatten,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 Params = Dict[str, Any]
 
@@ -43,10 +61,14 @@ class TransformerConfig:
     max_seq: int = 2048
     rope_theta: float = 10000.0
     dtype: Any = torch.bfloat16
-    # training-side fields, kept so both packages read one config;
-    # the training slice gives them their meaning here
     remat: bool = True
+    # remat granularity: "full" recomputes the whole layer in backward;
+    # "save-attn" keeps each layer's attention (its output and the
+    # flash kernel's own residuals) and recomputes the rest, so the
+    # flash forward never re-runs (see _layer_scan)
     remat_policy: str = "full"
+    # mixed remat: the last k layers store activations instead of
+    # recomputing
     no_remat_layers: int = 0
 
     def __post_init__(self) -> None:
@@ -68,9 +90,12 @@ class TransformerConfig:
     moe_aux_weight: float = 0.01
     moe_group_size: int = 1024
     moe_impl: str = "onehot"
+    # sequence-chunked cross entropy: only [b, chunk, vocab] f32 logits
+    # are ever live, each chunk recomputed in backward.  0 = unchunked.
     loss_chunk: int = 0
-    # the TPU kernel's VMEM tile sizes, kept for parity of the config;
-    # the port's kernel K2 picks its own tile (64 x 64) and ignores them
+    # the TPU kernels' VMEM tile sizes, kept for parity of the config;
+    # the port's kernels K2-K4 pick their own tile (64 x 64) and ignore
+    # them
     attn_block_q: int = 128
     attn_block_k: int = 128
 
@@ -175,7 +200,9 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return rotated.to(x.dtype)
 
 
-def _attention_block(config: TransformerConfig, layer, x, positions):
+def _qkv(config: TransformerConfig, layer, x, positions):
+    """Norm, projections, RoPE and the GQA repeat: q, k, v in the
+    kernels' ``[b, heads, s, head_dim]`` layout."""
     b, s, d = x.shape
     h, kv, hd = config.n_heads, config.n_kv_heads, config.head_dim
     normed = rms_norm(x, layer["attn_norm"])
@@ -187,11 +214,20 @@ def _attention_block(config: TransformerConfig, layer, x, positions):
     if kv != h:
         k = k.repeat_interleave(h // kv, dim=2)
         v = v.repeat_interleave(h // kv, dim=2)
-    attn = flash_attention(
-        *(t.transpose(1, 2) for t in (q, k, v)), causal=True
-    )
-    attn = attn.transpose(1, 2).reshape(b, s, h * hd)
+    return tuple(t.transpose(1, 2) for t in (q, k, v))
+
+
+def _attn_residual(config: TransformerConfig, layer, x, attn):
+    """The output projection of ``attn [b, heads, s, head_dim]`` onto
+    the residual stream."""
+    b, s, _ = x.shape
+    attn = attn.transpose(1, 2).reshape(b, s, config.n_heads * config.head_dim)
     return x + attn @ dq(layer["wo"], x.dtype)
+
+
+def _attention_block(config: TransformerConfig, layer, x, positions):
+    attn = flash_attention(*_qkv(config, layer, x, positions), causal=True)
+    return _attn_residual(config, layer, x, attn)
 
 
 def _mlp_block(layer, x):
@@ -208,10 +244,93 @@ def _ffn_block(config: TransformerConfig, layer, x):
     return _mlp_block(layer, x)
 
 
-def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
+def _layer_fn(config: TransformerConfig, layers, i: int, x, positions):
+    layer = layer_params(layers, i)
+    x = _attention_block(config, layer, x, positions)
+    return _ffn_block(config, layer, x)
+
+
+def _checkpointed(fn, *args):
+    # no layer draws random numbers, so the RNG state need not be
+    # saved for the recompute; non-reentrant, so tensors the function
+    # closes over (the stacked params) get their gradients
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _save_attn_layer(config: TransformerConfig, layers, i: int, x,
+                     positions):
+    """One layer under ``remat_policy="save-attn"``: the checkpointed
+    region is split around attention, so the attention's output and
+    the flash kernel's own residuals (q, k, v, o, lse) are kept and the
+    rest of the layer (norms, projections, RoPE, the MLP) is recomputed
+    in backward.  The flash forward never re-runs."""
+
+    def qkv(x):
+        return _qkv(config, layer_params(layers, i), x, positions)
+
+    def rest(x, attn):
+        layer = layer_params(layers, i)
+        return _ffn_block(config, layer, _attn_residual(config, layer, x,
+                                                        attn))
+
+    attn = flash_attention(*_checkpointed(qkv, x), causal=True)
+    return _checkpointed(rest, x, attn)
+
+
+def _layer_scan(config: TransformerConfig, layers, x, positions):
+    """Run x through the stack of layers.
+
+    Remat (``config.remat``, only while autograd records): each layer
+    runs under ``torch.utils.checkpoint`` — ``"full"`` recomputes the
+    whole layer in backward, ``"save-attn"`` keeps the attention (see
+    ``_save_attn_layer``).  Mixed remat (``no_remat_layers`` = k > 0):
+    the LAST k layers run without checkpointing, storing their
+    activations instead of recomputing them — those activations die
+    first in backward.  Remat never changes a value: the recompute runs
+    the same deterministic kernels on the same inputs."""
+    n_layers = layers["attn_norm"].shape[0]
+    remat = config.remat and torch.is_grad_enabled()
+    k = config.no_remat_layers if config.remat else 0
+    first_stored = n_layers - min(max(k, 0), n_layers)
+    for i in range(n_layers):
+        if not remat or i >= first_stored:
+            x = _layer_fn(config, layers, i, x, positions)
+        elif config.remat_policy == "save-attn":
+            x = _save_attn_layer(config, layers, i, x, positions)
+        else:
+            x = _checkpointed(
+                lambda x, i=i: _layer_fn(config, layers, i, x, positions), x
+            )
+    return x
+
+
+def _logits(config: TransformerConfig, params: Params, x: torch.Tensor
+            ) -> torch.Tensor:
     """Final norm and the tied head, in f32."""
     x = rms_norm(x, params["final_norm"])
     return x.float() @ params["embed"].float().T
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets.long()[..., None])[..., 0]
+
+
+def _trunk(
+    config: TransformerConfig,
+    params: Params,
+    tokens: torch.Tensor,
+    positions: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """tokens [b, s] -> final hidden states [b, s, d] (the JAX
+    ``_trunk``'s MoE aux term is not ported)."""
+    check_supported(config)
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x = params["embed"][tokens].to(config.dtype)
+    return _layer_scan(config, params["layers"], x, positions)
 
 
 def forward(
@@ -221,13 +340,181 @@ def forward(
     positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """tokens [b, s] -> logits [b, s, vocab] (f32), on tokens' device."""
+    return _logits(config, params, _trunk(config, params, tokens, positions))
+
+
+def _nll_mean(
+    config: TransformerConfig,
+    params: Params,
+    x: torch.Tensor,
+    targets: torch.Tensor,
+) -> torch.Tensor:
+    """Mean NLL over [b, s] positions from final hidden states.
+
+    With ``loss_chunk`` set, walks the sequence in chunks so only
+    [b, chunk, vocab] f32 logits are ever live; each chunk is
+    checkpointed, so the backward recomputes its logits instead of
+    saving them."""
+    b, s, _ = x.shape
+    chunk = config.loss_chunk
+    if chunk <= 0 or s % chunk != 0 or s == chunk:
+        return _nll(_logits(config, params, x), targets).mean()
+
+    def chunk_sum(xc, tc):
+        return _nll(_logits(config, params, xc), tc).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, s, chunk):
+        xc, tc = x[:, c:c + chunk], targets[:, c:c + chunk]
+        if torch.is_grad_enabled():
+            total = total + _checkpointed(chunk_sum, xc, tc)
+        else:
+            total = total + chunk_sum(xc, tc)
+    return total / (b * s)
+
+
+def loss_fn(
+    config: TransformerConfig, params: Params, tokens: torch.Tensor,
+    targets: torch.Tensor,
+) -> torch.Tensor:
+    return _nll_mean(config, params, _trunk(config, params, tokens),
+                     targets)
+
+
+def adamw(params: Params, lr: float = 3e-4) -> torch.optim.AdamW:
+    """The counterpart of ``optax.adamw(lr)``: b1 0.9, b2 0.999, eps
+    1e-8 and weight decay 1e-4 (optax's default; torch's is 0.01) on
+    every leaf, as optax has no mask by default.  torch's AdamW decays
+    ``p`` by ``lr * wd * p`` before the moment update, optax adds
+    ``wd * p`` to the update: the same step.  Every leaf becomes a
+    trainable tensor (``requires_grad``); the optimizer's param order
+    is the tree's (``tree_leaves``)."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    return torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+def adamw_layout(params: Params, fill: Any):
+    """optax.adamw's state layout over ``params`` with every leaf
+    ``fill``: a template for a restore that reads only the params of a
+    train-state checkpoint (``fill`` = ``utils.checkpoint.SKIP``)."""
+    moments = tree_map(lambda _: fill, params)
+    return ((fill, moments, moments), (), ())
+
+
+def adamw_state(optimizer: torch.optim.AdamW, params: Params):
+    """The optimizer's state laid out as optax.adamw's,
+    ``(ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())``:
+    ``((count, mu, nu), (), ())`` with ``mu``/``nu`` trees shaped like
+    ``params`` and ``count`` an int32 scalar, so a train-state tree
+    ``{"params": ..., "opt_state": ...}`` flattens to the leaves of the
+    JAX train worker's checkpoint in its order.  A moment the optimizer
+    has not made yet (no step taken) is a zero tensor, as optax's init
+    is; the tensors are the optimizer's own, not copies."""
+    leaves, structure = tree_flatten(params)
+    mu, nu, count = [], [], 0
+    for p in leaves:
+        state = optimizer.state.get(p, {})
+        mu.append(state.get("exp_avg", torch.zeros_like(p)))
+        nu.append(state.get("exp_avg_sq", torch.zeros_like(p)))
+        if "step" in state:
+            count = int(state["step"])
+    device = leaves[0].device
+    return ((torch.tensor(count, dtype=torch.int32, device=device),
+             tree_unflatten(structure, mu), tree_unflatten(structure, nu)),
+            (), ())
+
+
+def load_adamw_state(optimizer: torch.optim.AdamW, params: Params,
+                     opt_state) -> None:
+    """Set the optimizer's state from an ``adamw_state`` layout (for
+    example a restored checkpoint's): the moments by tree position,
+    optax's ``count`` as torch's ``step``."""
+    (count, mu, nu), _, _ = opt_state
+    for p, m, v in zip(tree_leaves(params), tree_leaves(mu),
+                       tree_leaves(nu)):
+        if m.shape != p.shape or v.shape != p.shape:
+            raise ValueError(
+                f"moment shapes {tuple(m.shape)}/{tuple(v.shape)} do not "
+                f"match the param {tuple(p.shape)}"
+            )
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": m.to(device=p.device, dtype=p.dtype),
+            "exp_avg_sq": v.to(device=p.device, dtype=p.dtype),
+        }
+
+
+def train_state(params: Params, optimizer: torch.optim.AdamW) -> Params:
+    """The trainer's checkpoint tree, ``{"params", "opt_state"}``, as
+    the JAX train worker saves it (the tensors are the live ones)."""
+    return {"params": params, "opt_state": adamw_state(optimizer, params)}
+
+
+def load_train_state(params: Params, optimizer: torch.optim.AdamW,
+                     state: Params) -> None:
+    """Copy a restored ``train_state`` tree into the live params (in
+    place: the optimizer holds them) and the optimizer's state."""
+    with torch.no_grad():
+        for p, value in zip(tree_leaves(params),
+                            tree_leaves(state["params"])):
+            p.copy_(value)
+    load_adamw_state(optimizer, params, state["opt_state"])
+
+
+def make_train_step(
+    config: TransformerConfig,
+    optimizer: torch.optim.Optimizer,
+    grad_accum: int = 1,
+) -> Callable[[Params, torch.Tensor, torch.Tensor], torch.Tensor]:
+    """Build a (params, tokens, targets) -> loss step on one device.
+
+    The params (the optimizer's own leaves) and the optimizer state are
+    updated IN PLACE: the step is the counterpart of the JAX package's
+    jitted step with donated buffers (``donate`` has no torch meaning).
+    The loss comes back as a 0-d f32 tensor on the params' device,
+    without waiting for the card.
+
+    ``grad_accum`` > 1 splits the batch into that many equal
+    microbatches; their gradients accumulate in f32 and are applied as
+    ``(sum / k).to(p.dtype)`` in ONE optimizer update; the loss is the
+    mean of the microbatch losses.  A batch that does not split evenly
+    raises ``ValueError``.  Remat (``config.remat``) composes per
+    microbatch."""
     check_supported(config)
-    b, s = tokens.shape
-    if positions is None:
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = params["embed"][tokens].to(config.dtype)
-    for i in range(config.n_layers):
-        layer = layer_params(params["layers"], i)
-        x = _attention_block(config, layer, x, positions)
-        x = _ffn_block(config, layer, x)
-    return _logits(params, x)
+    grad_accum = max(1, int(grad_accum))
+
+    def grads_of(params, leaves, tokens, targets):
+        loss = loss_fn(config, params, tokens, targets)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    def step(params, tokens, targets):
+        leaves = tree_leaves(params)
+        if grad_accum == 1:
+            loss, grads = grads_of(params, leaves, tokens, targets)
+        else:
+            micro = zip(split_microbatches(tokens, grad_accum),
+                        split_microbatches(targets, grad_accum))
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=leaves[0].device)
+            grad_sum = [torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device) for p in leaves]
+            for mb_tokens, mb_targets in micro:
+                mb_loss, grads = grads_of(params, leaves, mb_tokens,
+                                          mb_targets)
+                loss = loss + mb_loss
+                for acc, g in zip(grad_sum, grads):
+                    acc.add_(g.float())
+            grads = [(g / grad_accum).to(p.dtype)
+                     for p, g in zip(leaves, grad_sum)]
+            loss = loss / grad_accum
+        for p, g in zip(leaves, grads):
+            p.grad = g
+        optimizer.step()
+        for p in leaves:
+            p.grad = None
+        return loss
+
+    return step

@@ -6,7 +6,13 @@ tensor always goes through the kernel."""
 from dcos_commons_tpu_torch.ops.attention import (
     flash_attention,
     reference_attention,
+    reference_attention_bwd,
 )
 from dcos_commons_tpu_torch.ops.rmsnorm import rms_norm
 
-__all__ = ["flash_attention", "reference_attention", "rms_norm"]
+__all__ = [
+    "flash_attention",
+    "reference_attention",
+    "reference_attention_bwd",
+    "rms_norm",
+]

@@ -56,7 +56,16 @@ print("imported", len(sys.argv) - 2)
 
 def test_every_port_module_imports_without_jax():
     mods = sorted(_modules())
-    assert "dcos_commons_tpu_torch.frameworks.serve_worker" in mods
+    assert {
+        "dcos_commons_tpu_torch.frameworks.serve_worker",
+        "dcos_commons_tpu_torch.frameworks.train_worker",
+        "dcos_commons_tpu_torch.utils.checkpoint",
+        "dcos_commons_tpu_torch.utils.data",
+        "dcos_commons_tpu_torch.trace.steplog",
+        "dcos_commons_tpu_torch.data.loader",
+        "dcos_commons_tpu_torch.parallel.distributed",
+        "dcos_commons_tpu_torch.parallel.pipeline",
+    } <= set(mods)
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT, REPO, *mods],
         capture_output=True, text=True, timeout=300, cwd=REPO,
@@ -87,6 +96,7 @@ def test_no_source_imports_jax_or_the_jax_package(path):
 def test_entry_points_default_to_the_card():
     from dcos_commons_tpu_torch.device import resolve_device
     from dcos_commons_tpu_torch.frameworks.serve_worker import build_server
+    from dcos_commons_tpu_torch.frameworks.train_worker import train
     from dcos_commons_tpu_torch.models import (
         TransformerConfig,
         init_kv_cache,
@@ -106,6 +116,7 @@ def test_entry_points_default_to_the_card():
         lambda: init_kv_cache(config, 1, 8),
         lambda: params_from_jax({"layers": {}}),
         lambda: build_server({"VOCAB": "16"}, ready_file=""),
+        lambda: train({"VOCAB": "16", "TRAIN_STEPS": "1"}),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
