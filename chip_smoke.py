@@ -37,9 +37,17 @@ CUDA card).  Phases, each fatal on failure:
    [4096, 2048] bf16, K2-K4 [192 or 32, 2048, 2048, 128] bf16 causal),
    within ``TOL``.
 
+Each kernel's log line gives its error, its time, the plain version's,
+the library call's and the bound, the rate it reached (TFLOP/s) and its
+time over the library call's.  Each phase has its own time limit: one
+that outlives it (a kernel that hangs the card) is named and ends the
+run with exit code 3.
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the
-last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
-without the port beside it, the script fails before printing either.
+CUDA entries' ``design`` says how each computes (K2 and K4: wgmma with
+TMA-fed tiles in bf16, f32 FMA in f32; K3: f32 FMA).  The last line is
+``{"ok": true, "device": {...}}``.  Without CUDA, or without the port
+beside it, the script fails before printing either.
 """
 
 import json
@@ -66,16 +74,18 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # K1 f32: the same arithmetic in another order; bf16: the output is
 # rounded once to bf16 on both sides, so a tie may land one ulp
 # (2^-8 relative) apart.  K2 f32: sums of up to 960 products in
-# another order; bf16: inputs are exact in both, the f32 result is
-# rounded once.  lse: f32 on both sides.  K3/K4 against the plain
-# backward: f32 as the largest absolute error (sums of up to 2048
-# products in another order, twice nested: s and dp, then ds times k or
-# q); bf16 as the relative Frobenius error ||got - want|| / ||want||.
-# Both sides round ds and p to bf16 before the products, so the sound
-# kernels read 0 to 4.9e-5 on the card (PERF.md); a backward that keeps
-# ds and p in f32 reads 2.4e-3 to 2.7e-3 against the plain one at the
-# phase 2b shapes (tests/test_torch_ops.py measures it on the CPU), so
-# the limit sits between the two.
+# another order; bf16: the kernel rounds p to bf16 before P V, as the
+# TPU kernel does, and the plain version keeps it f32, so an output may
+# land one bf16 ulp away (2^-8 relative).  lse: f32 on both sides.
+# K3/K4 against the plain backward: f32 as the largest absolute error
+# (sums of up to 2048 products in another order, twice nested: s and
+# dp, then ds times k or q); bf16 as the relative Frobenius error
+# ||got - want|| / ||want||.  Both sides round ds and p to bf16 before
+# the products, so the sound kernels read 0 to 1.9e-4 on the card
+# (PERF.md: the FMA kernels up to 6.0e-5, K4 on the tensor cores up to
+# 1.9e-4); a backward that keeps ds and p in f32 reads 2.4e-3 to 2.7e-3
+# against the plain one at the phase 2b shapes (tests/test_torch_ops.py
+# measures it on the CPU), so the limit sits between the two.
 TOL = {
     ("K1", torch.float32): (1e-5, 1e-5),
     ("K1", torch.bfloat16): (1.6e-2, 1.6e-2),
@@ -130,6 +140,32 @@ def check(name, got, want, tol):
             f"atol {atol} rtol {rtol}"
         )
     return err.max().item()
+
+
+class Watchdog:
+    """A time limit for each phase.  A kernel that hangs the card (a
+    barrier phase out of step) would hold the run until its outer limit;
+    instead the phase that outlives its own limit is named and the
+    process ends with exit code 3, printing no result."""
+
+    def __init__(self):
+        self.timer = None
+
+    def phase(self, name, seconds):
+        self.stop()
+
+        def expire():
+            log(f"phase {name} exceeded its {seconds} s limit")
+            os._exit(3)
+
+        self.timer = threading.Timer(seconds, expire)
+        self.timer.daemon = True
+        self.timer.start()
+
+    def stop(self):
+        if self.timer is not None:
+            self.timer.cancel()
+            self.timer = None
 
 
 class ShapeLog:
@@ -188,7 +224,7 @@ def k1_case(rows, d, dtype, gen):
     b_ms, b_by = bound(2 * rows * d * item + d * item, 4 * rows * d,
                        torch.float32)
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by, flops=4 * rows * d)
 
 
 def k2_pairs(sq, sk, causal):
@@ -225,10 +261,10 @@ def k2_case(bh, sq, sk, hd, dtype, causal, gen, iters=20):
         lib_ms = time_ms(lambda: sdpa(q4, k4, v4, is_causal=causal), iters)
     item = q.element_size()
     n_bytes = (2 * bh * sq * hd + 2 * bh * sk * hd) * item
-    b_ms, b_by = bound(n_bytes, 4 * hd * bh * k2_pairs(sq, sk, causal),
-                       dtype)
+    flops = 4 * hd * bh * k2_pairs(sq, sk, causal)
+    b_ms, b_by = bound(n_bytes, flops, dtype)
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by, flops=flops)
 
 
 def k34_case(bh, sq, sk, hd, dtype, causal, gen, iters=20):
@@ -270,6 +306,19 @@ def k34_case(bh, sq, sk, hd, dtype, causal, gen, iters=20):
                 f"{TOL[('K3/K4', dtype)]}"
             )
         errs[name] = (max_abs, metric)
+    lib_err = None
+    if sq == sk or not causal:
+        # the library's backward against the same plain version, as a
+        # yardstick for the tensor cores' own rounding (reported only)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (q4, k4_, v4)]
+        lib_grads = torch.autograd.grad(sdpa(*leaves, is_causal=causal),
+                                        leaves, do4)
+        lib_err = max(((g[0].float() - w[0].float()).norm()
+                       / w[0].float().norm()).item()
+                      for g, w in zip(lib_grads, want))
+        del leaves, lib_grads
     del want
     plain_ms = time_ms(
         lambda: attention.reference_attention_bwd(q4, k4_, v4, o4, lse, do4,
@@ -303,7 +352,7 @@ def k34_case(bh, sq, sk, hd, dtype, causal, gen, iters=20):
             err=max(errs[e][0] for e in err_names),
             metric=max(errs[e][1] for e in err_names),
             ms=time_ms(fn, iters), plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=b_ms, bound_by=b_by,
+            bound_ms=b_ms, bound_by=b_by, flops=flops, library_err=lib_err,
         ))
     return out
 
@@ -333,10 +382,21 @@ def phase_backward(gen):
 
 
 def fmt(r):
+    """A case's log: error, times, the rate the kernel reached (its
+    operations over its time) and its time over the library call's
+    (for K3 and K4, over the whole backward's: SDPA computes dq, dk and
+    dv in one call; there also the library's own relative Frobenius
+    error against the plain backward, the largest of dq, dk, dv)."""
     lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+    ratio = ("n/a" if r["library_ms"] is None
+             else f"{r['ms'] / r['library_ms']:.2f}x")
+    lib_err = ("" if r.get("library_err") is None
+               else f"  library's own error {r['library_err']:.3e}")
     return (f"max_abs_err {r['err']:.3e}  kernel {r['ms']:.4f} ms  plain "
             f"{r['plain_ms']:.4f} ms  library {lib} ms  bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})  "
+            f"{r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s  kernel/library "
+            f"{ratio}{lib_err}")
 
 
 def phase_kernels(gen):
@@ -745,13 +805,16 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     # phase 1: build every kernel from the checkout
+    watchdog = Watchdog()
+    watchdog.phase("1 build", 400)
     t0 = time.monotonic()
     build_cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.ones(2, 64, device="cuda")
     rmsnorm.rms_norm_kernel(x, x[0])       # triton compiles here
-    attention.flash_fwd_kernel(*(torch.ones(1, 8, 64, device="cuda"),) * 3,
-                               True)
+    for dtype in (torch.float32, torch.bfloat16):
+        attention.flash_fwd_kernel(
+            *(torch.ones(1, 8, 64, device="cuda", dtype=dtype),) * 3, True)
     torch.cuda.synchronize()
     log(f"build: {time.monotonic() - t0:.1f} s (nvcc + triton)")
 
@@ -773,12 +836,15 @@ def main():
                 bool(causal), q.dtype))
 
     # phase 2
+    watchdog.phase("2 kernels", 180)
     errs = phase_kernels(gen)
     # phase 2b
+    watchdog.phase("2b backward kernels", 240)
     bwd_errs, (r3, r4) = phase_backward(gen)
     errs.update(bwd_errs)
 
     # phase 3: slot pool at the flagship width
+    watchdog.phase("3 slot-pool serving", 300)
     sandbox = os.path.join(ROOT, "build", "smoke")
     os.makedirs(sandbox, exist_ok=True)
     requests = requests_for(32768)
@@ -792,6 +858,7 @@ def main():
     k1_slot_shapes = dict(logs["K1"].shapes)
 
     # phase 4: paged arena (the default), prefix cache on
+    watchdog.phase("4 paged serving", 300)
     env = dict(FLAGSHIP_ENV, KV_PAGE_TOKENS="16",
                PREFILL_CHUNK_TOKENS="64", SANDBOX=sandbox)
     paged_replies, paged_launches, stats, wall = serve(env, requests, logs)
@@ -816,12 +883,15 @@ def main():
     k1_shape = logs["K1"].busiest()
 
     # phase 5: exact cross-path check in f32
+    watchdog.phase("5 cross-path check", 180)
     cross_path_check()
 
     # phase 6: the train step on the card against the CPU
+    watchdog.phase("6 train-step parity", 180)
     train_step_parity()
 
     # phase 7: the train worker at the flagship width, then the timed step
+    watchdog.phase("7 train worker and timed step", 600)
     train_launches, train_shapes = phase_train(logs)
     launches = {n: slot_launches[n] + paged_launches[n] + train_launches[n]
                 for n in logs}
@@ -829,6 +899,7 @@ def main():
     # the kernels line: every kernel at the flagship training shape
     # (bench.py batch 12: K1 [24576, 2048], K2-K4 [192, 2048, 2048, 128]),
     # which the timed step launched; K3/K4 were checked there in 2b
+    watchdog.phase("8 kernels at the main path's shapes", 300)
     seq = int(TRAIN_ENV["SEQ_LEN"])
     k1_train = (TRAIN_BATCH * seq, 2048, torch.bfloat16)
     attn_train = (TRAIN_BATCH * 16, seq, seq, 128, True, torch.bfloat16)
@@ -864,6 +935,7 @@ def main():
              plain_ms=r1["plain_ms"], bound_ms=r1["bound_ms"],
              bound_by=r1["bound_by"], library_ms=r1["library_ms"]),
         dict(name="K2 flash_fwd", route="cuda",
+             design="wgmma+tma (bf16), fma (f32)",
              source=f"{pkg}/csrc/flash_fwd.cu",
              replaces="dcos_commons_tpu/ops/attention.py:33",
              launches=launches["K2"],
@@ -871,18 +943,21 @@ def main():
              plain_ms=r2["plain_ms"], bound_ms=r2["bound_ms"],
              bound_by=r2["bound_by"], library_ms=r2["library_ms"]),
     ]
-    for name, label, line, r in (
-        ("K3", "K3 flash_dq", 108, r3), ("K4", "K4 flash_dkv", 172, r4),
+    for name, label, line, design, r in (
+        ("K3", "K3 flash_dq", 108, "fma (bf16, f32)", r3),
+        ("K4", "K4 flash_dkv", 172, "wgmma+tma (bf16), fma (f32)", r4),
     ):
         # plain_ms and library_ms time the whole backward (dq, dk, dv):
         # the plain version and SDPA's backward compute both kernels'
         # outputs in one call
         kernels.append(dict(
-            name=label, route="cuda", source=f"{pkg}/csrc/flash_bwd.cu",
+            name=label, route="cuda", design=design,
+            source=f"{pkg}/csrc/flash_bwd.cu",
             replaces=f"dcos_commons_tpu/ops/attention.py:{line}",
             launches=launches[name], max_abs_err=errs[name], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    watchdog.stop()
     log(f"total {time.monotonic() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

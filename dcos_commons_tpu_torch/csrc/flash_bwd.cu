@@ -33,19 +33,24 @@
 // What bounds them on the H100: K3 does 6*hd flops per visible (q, k)
 // pair and K4 8*hd, against 4-6 tensors of [bh, s, hd] bytes, so at
 // training lengths (s = 2048, hd = 128) both are past the memory ridge
-// and the tensor-core rate is the bound.  This first version does not
-// reach it: it computes in f32 FMA on the CUDA cores (no mma/wgmma, no
-// TMA), which is a later PR's work.  What its design does keep: the
-// s x s probability and gradient matrices never leave the block.
+// and the tensor-core rate is the bound.  Two designs:
 //
-// Tiles and registers: 64-row Q and K tiles, 256 threads as a 16 x 16
-// grid.  Each thread owns 4 rows x hd/16 columns of each f32
-// accumulator (K3: dq, 32 registers at hd 128; K4: dk and dv, 64) and
-// 4 x 4 entries of s and dp.  A 128-thread block would hold 128
-// accumulator registers a thread in K4 before anything else.  Tiles
-// stage in shared memory as f32 with a padded row (hd + 1 floats, so
-// rows fall on different banks): K3 149,248 bytes and K4 165,888 at
-// hd 128, opted in with cudaFuncSetAttribute; one block per SM.
+// K4 in bf16 (every K4 launch of the training path) runs its products on
+// the tensor cores through wgmma, with tiles loaded by TMA: see the note
+// at flash_dkv_wgmma below.
+//
+// K3 (both dtypes) and K4 in f32 (only the f32 parity checks) compute in
+// f32 FMA on the CUDA cores (no mma/wgmma, no TMA); moving K3 to the
+// tensor cores is a later PR's work.  What that design keeps: the s x s
+// probability and gradient matrices never leave the block.  Tiles and
+// registers: 64-row Q and K tiles, 256 threads as a 16 x 16 grid.  Each
+// thread owns 4 rows x hd/16 columns of each f32 accumulator (K3: dq,
+// 32 registers at hd 128; K4: dk and dv, 64) and 4 x 4 entries of s and
+// dp.  A 128-thread block would hold 128 accumulator registers a thread
+// in K4 before anything else.  Tiles stage in shared memory as f32 with
+// a padded row (hd + 1 floats, so rows fall on different banks): K3
+// 149,248 bytes and K4 165,888 at hd 128, opted in with
+// cudaFuncSetAttribute; one block per SM.
 //
 // Plain C interface for ctypes (see ops/attention.py): each entry
 // point returns a cudaError_t, 0 on success; the caller raises on
@@ -55,6 +60,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -409,6 +416,300 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---- K4 in bf16: wgmma + TMA ----------------------------------------------
+//
+// One block of two warpgroups owns (bh, a 128-row K tile), 64 K rows
+// each.  There is no producer warpgroup: one thread of warpgroup 0 issues
+// every TMA load, each as soon as both warpgroups have released the
+// stage.  ptxas decides whether to pipeline the wgmmas against the
+// registers a thread has at launch, and a producer costs the consumers
+// those: with a producer warpgroup (384 threads, 168 registers a thread
+// at launch) it serialised every wgmma of this kernel and spilled,
+// though setmaxnreg gave the consumers 240; a producer warp (288
+// threads) leaves 168 too, as 9 warps put 3 on one of the SM's four
+// register files.  At 256 threads a thread has the ~220 the products
+// need.  K and V are loaded once; 64-row Q and dO tiles stream through a
+// 3-stage ring (full and empty barriers per stage; loads run two tiles
+// ahead of the issuing warpgroup), each consumed in two halves of 32
+// queries: S^T and dP^T at 16 f32 registers each beside dK and dV's 64
+// + 64 (at 64 queries they spilled).  Working transposed, as
+// FlashAttention-3's backward does, the K rows are the rows of every
+// product, so dK and dV stay in registers for the whole loop:
+//
+//   S^T  = K Q^T,  dP^T = V dO^T      wgmma m64n32k16, A and B in smem
+//   P^T  = exp(S^T scale - lse)       lse and di indexed by column
+//   dS^T = P^T (dP^T - di)
+//   dV  += bf16(P^T) dO,  dK += bf16(dS^T) Q
+//                                     wgmma m64nHDk16, A from registers,
+//                                     dO and Q as MN-major B operands
+//
+// lse (times log2 e) and di come padded to 64-row tiles
+// ([bh, round_up(seq_q, 64)], from the wrapper) and ride with each stage
+// as two 256-byte bulk copies: read from shared memory, their latency
+// is hidden like the tiles' (as plain global loads they cost 30% of the
+// kernel at the training shape).  Every dK and dV element has one
+// writer: no atomics, the same bits run to run.
+
+constexpr int kTileKV = 128;      // K rows of a block: two consumers x 64
+constexpr int kTileQ = 64;        // Q rows of a ring stage
+constexpr int kStages = 3;
+constexpr int kDkvThreads = 256;  // two warpgroups
+constexpr int kKVHalf = kTileKV * 128;  // a [128][64] bf16 column half
+constexpr int kQHalf = kTileQ * 128;    // a [64][64] bf16 column half
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+constexpr size_t dkv_wgmma_smem_bytes() {
+  // K, V, the Q and dO ring, the lse and di ring, 7 barriers, slack to
+  // align the base to 1024
+  return (size_t)(HD / 64) * (2 * kKVHalf + 2 * kStages * kQHalf) +
+         2 * kStages * kTileQ * sizeof(float) + 64 + 1024;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    flash_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ lse2,
+                    const float* __restrict__ di,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int seq_q, int seq_k,
+                    int causal, float scale) {
+  constexpr int H = HD / 64;  // column halves of a tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base =
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = base;
+  uint8_t* vs = ks + H * kKVHalf;
+  uint8_t* qs = vs + H * kKVHalf;              // [stage][half]
+  uint8_t* dos = qs + kStages * H * kQHalf;    // [stage][half]
+  float* lse_s = reinterpret_cast<float*>(dos + kStages * H * kQHalf);
+  float* di_s = lse_s + kStages * kTileQ;  // [stage][64] each
+  uint64_t* bars = reinterpret_cast<uint64_t*>(di_s + kStages * kTileQ);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int k0 = blockIdx.x * kTileKV;
+  const int bh = blockIdx.y;
+  const int n_q_tiles = (seq_q + kTileQ - 1) / kTileQ;
+  // Q tiles strictly before this K tile see none of it
+  const int t0 = causal ? min(k0 / kTileQ, n_q_tiles) : 0;
+  const int n_iter = n_q_tiles - t0;
+  const size_t rows = (size_t)bh * n_q_tiles * kTileQ;  // padded lse, di
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kDkvThreads);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the Q and dO tiles of iteration i into stage i % kStages, once both
+  // warpgroups have released that stage's previous tile
+  const bool issuer = threadIdx.x == 0;
+  auto load_q_do = [&](int i) {
+    const int s = i % kStages;
+    const int q0 = (t0 + i) * kTileQ;
+    if (i >= kStages) hopper::mbar_wait(&empty[s], (i / kStages - 1) & 1);
+    hopper::mbar_arrive_expect_tx(&full[s], 2 * H * kQHalf +
+                                                2 * kTileQ * sizeof(float));
+    for (int h = 0; h < H; ++h) {
+      hopper::tma_load_3d(qs + (s * H + h) * kQHalf, &tm_q, &full[s], 64 * h,
+                          q0, bh);
+      hopper::tma_load_3d(dos + (s * H + h) * kQHalf, &tm_do, &full[s],
+                          64 * h, q0, bh);
+    }
+    hopper::bulk_load(lse_s + s * kTileQ, lse2 + rows + q0,
+                      kTileQ * sizeof(float), &full[s]);
+    hopper::bulk_load(di_s + s * kTileQ, di + rows + q0,
+                      kTileQ * sizeof(float), &full[s]);
+  };
+  if (issuer && n_iter > 0) {
+    hopper::mbar_arrive_expect_tx(kv_full, 2 * H * kKVHalf);
+    for (int h = 0; h < H; ++h) {
+      hopper::tma_load_3d(ks + h * kKVHalf, &tm_k, kv_full, 64 * h, k0, bh);
+      hopper::tma_load_3d(vs + h * kKVHalf, &tm_v, kv_full, 64 * h, k0, bh);
+    }
+    for (int i = 0; i < min(kStages, n_iter); ++i) load_q_do(i);
+  }
+
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int kv0 = k0 + 64 * (threadIdx.x / 128);   // first K row owned
+  const int r_in = 16 * (tid / 32) + lane / 4;         // rows r_in, r_in + 8
+  const int c0 = 2 * (lane % 4);
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t kv_off = (kv0 - k0) * 128;  // the slab's rows in each half
+
+  float dk_acc[HD / 2], dv_acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  if (n_iter > 0) hopper::mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % kStages;
+    const int q0 = (t0 + it) * kTileQ;
+    hopper::mbar_wait(&full[s], (it / kStages) & 1);
+    const float* lse_st = lse_s + s * kTileQ;
+    const float* di_st = di_s + s * kTileQ;
+    // the stage's 64 queries in two halves of 32, to keep S^T and dP^T
+    // at 16 registers each beside dK and dV (64 + 64); not unrolled, so
+    // one half's registers are live at a time
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      const int qh = q0 + 32 * half;
+      // warpgroup-uniform: no query of the half in range, or (causal)
+      // every query before this slab's first K row
+      if (qh >= seq_q || (causal && qh + 31 < kv0)) continue;
+      uint8_t* q_h = qs + s * H * kQHalf + 32 * half * 128;
+      uint8_t* do_h = dos + s * H * kQHalf + 32 * half * 128;
+
+      // S^T = K Q^T and dP^T = V dO^T over head_dim in k16 steps
+      float st[16], dpt[16];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int a_byte = (kk / 4) * kKVHalf + kv_off + (kk % 4) * 32;
+        const int b_byte = (kk / 4) * kQHalf + (kk % 4) * 32;
+        const uint64_t a = hopper::desc_sw128(ks + a_byte, 16, 1024);
+        const uint64_t b = hopper::desc_sw128(q_h + b_byte, 16, 1024);
+        if (kk == 0)
+          hopper::wgmma_ss_zero(st, a, b);
+        else
+          hopper::wgmma_ss(st, a, b);
+      }
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int a_byte = (kk / 4) * kKVHalf + kv_off + (kk % 4) * 32;
+        const int b_byte = (kk / 4) * kQHalf + (kk % 4) * 32;
+        const uint64_t a = hopper::desc_sw128(vs + a_byte, 16, 1024);
+        const uint64_t b = hopper::desc_sw128(do_h + b_byte, 16, 1024);
+        if (kk == 0)
+          hopper::wgmma_ss_zero(dpt, a, b);
+        else
+          hopper::wgmma_ss(dpt, a, b);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(st);
+      hopper::fence_regs(dpt);
+
+      // P^T and dS^T in place: row = K index, column = query index
+      const bool edge = qh + 32 > seq_q || kv0 + 64 > seq_k ||
+                        (causal && qh < kv0 + 63);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 32 * half + 8 * i + c0 + e;  // in the stage
+          const int qi = q0 + col;
+          const bool q_in = qi < seq_q;
+          const float shift = lse_st[col];
+          const float d = di_st[col];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int idx = 4 * i + 2 * j + e;
+            const int kj = kv0 + r_in + 8 * j;
+            float p = hopper::exp2_ftz(fmaf(st[idx], scale_log2, -shift));
+            if (edge && !(q_in && kj < seq_k && (!causal || qi >= kj)))
+              p = 0.f;
+            st[idx] = p;
+            dpt[idx] = p * (dpt[idx] - d);
+          }
+        }
+
+      // bf16(P^T) and bf16(dS^T) as A fragments (the TPU kernel's
+      // p.astype(do.dtype) and ds.astype(q.dtype)); the next products
+      // reduce over the half's 32 queries: k16 step kk = its rows
+      // 16 kk .. 16 kk + 15 of the dO and Q tiles
+      uint32_t pa[2][4], da[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        hopper::pack_a(pa[kk], st, kk);
+        hopper::pack_a(da[kk], dpt, kk);
+      }
+      hopper::fence_regs(dv_acc);
+      hopper::fence_regs(dk_acc);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        hopper::fence_regs(pa[kk]);
+        hopper::fence_regs(da[kk]);
+      }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        hopper::wgmma_rs_tb(
+            dv_acc, pa[kk],
+            hopper::desc_sw128(do_h + kk * 2048, kQHalf, 1024));
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        hopper::wgmma_rs_tb(
+            dk_acc, da[kk],
+            hopper::desc_sw128(q_h + kk * 2048, kQHalf, 1024));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dv_acc);
+      hopper::fence_regs(dk_acc);
+    }
+    hopper::mbar_arrive(&empty[s]);
+    if (issuer && it + kStages < n_iter) load_q_do(it + kStages);
+  }
+
+  // q was streamed unscaled, so dk takes the single scale here; a K tile
+  // that no query sees writes zeros
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int kj = kv0 + r_in + 8 * j;
+    if (kj >= seq_k) continue;
+    const size_t off = ((size_t)bh * seq_k + kj) * HD + c0;
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * i) =
+          __floats2bfloat162_rn(dk_acc[4 * i + 2 * j] * scale,
+                                dk_acc[4 * i + 2 * j + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * i) =
+          __floats2bfloat162_rn(dv_acc[4 * i + 2 * j],
+                                dv_acc[4 * i + 2 * j + 1]);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* di, void* dk, void* dv, int bh,
+                             int seq_q, int seq_k, int causal,
+                             cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  cudaError_t err;
+  if ((err = hopper::make_map(&tm_q, q, bh, seq_q, HD, kTileQ)) !=
+          cudaSuccess ||
+      (err = hopper::make_map(&tm_do, dout, bh, seq_q, HD, kTileQ)) !=
+          cudaSuccess ||
+      (err = hopper::make_map(&tm_k, k, bh, seq_k, HD, kTileKV)) !=
+          cudaSuccess ||
+      (err = hopper::make_map(&tm_v, v, bh, seq_k, HD, kTileKV)) !=
+          cudaSuccess)
+    return err;
+  constexpr size_t smem = dkv_wgmma_smem_bytes<HD>();
+  err = cudaFuncSetAttribute(flash_dkv_wgmma<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq_k + kTileKV - 1) / kTileKV, bh);
+  flash_dkv_wgmma<HD><<<grid, kDkvThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, lse, di, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), seq_q, seq_k, causal,
+      1.0f / sqrtf((float)HD));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -439,7 +740,10 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// As flash_bwd_dq; dk and dv like k.
+// As flash_bwd_dq; dk and dv like k.  f32 runs the FMA kernel.  bf16 runs
+// the wgmma + TMA kernel: base pointers 16-byte aligned, and lse and di
+// padded to whole 64-row tiles, [bh, round_up(seq_q, 64)] f32 with zeros
+// past seq_q and lse multiplied by log2(e) (ops/attention.py makes them).
 int flash_bwd_dkv(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* di, void* dk,
                   void* dv, int bh, int seq_q, int seq_k, int head_dim,
@@ -454,11 +758,11 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
     return launch_dkv<float, 128>(q, k, v, dout, l, d, dk, dv, bh, seq_q,
                                   seq_k, causal, s);
   if (dtype == 1 && head_dim == 64)
-    return launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, l, d, dk, dv, bh,
-                                         seq_q, seq_k, causal, s);
+    return launch_dkv_wgmma<64>(q, k, v, dout, l, d, dk, dv, bh, seq_q, seq_k,
+                                causal, s);
   if (dtype == 1 && head_dim == 128)
-    return launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, l, d, dk, dv, bh,
-                                          seq_q, seq_k, causal, s);
+    return launch_dkv_wgmma<128>(q, k, v, dout, l, d, dk, dv, bh, seq_q,
+                                 seq_k, causal, s);
   return cudaErrorInvalidValue;
 }
 

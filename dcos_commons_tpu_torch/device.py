@@ -9,8 +9,13 @@ Kernels are built from the sources in ``csrc/`` at first use, into
 compiles each ``.cu`` for ``sm_90a`` into a shared library with a
 plain C interface, loaded with ``ctypes``.  The library's file name
 carries a hash of its source, so an edited kernel never loads a stale
-build.  Triton kernels compile at their first launch; their cache is
-pointed into the same build directory.
+build.  The hash also covers every ``csrc/*.cuh`` (the Hopper helpers in
+``hopper.cuh``), so an edited header rebuilds every library.  The bf16
+attention kernels build their TMA tensor maps with the driver's
+``cuTensorMapEncodeTiled``, found at run time through the runtime's
+driver entry point: nothing links against ``libcuda``, but the driver
+must be there.  Triton kernels compile at their first launch; their
+cache is pointed into the same build directory.
 """
 
 from __future__ import annotations
@@ -67,9 +72,15 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """``build/kernels/lib<name>-<hash>.so``, the hash over the ``.cu``
+    and every ``csrc/*.cuh`` it may include, so that an edit to a shared
+    header never loads a stale library."""
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for source in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, source), "rb") as f:
+            digest.update(source.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 def build_cuda(names: Optional[Iterable[str]] = None) -> Dict[str, str]:

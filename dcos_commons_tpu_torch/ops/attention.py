@@ -1,6 +1,9 @@
 """Flash attention, forward and backward: kernels K2 (``csrc/flash_fwd.cu``),
 K3 and K4 (``csrc/flash_bwd.cu``), all CUDA C++, and their plain
-PyTorch versions.
+PyTorch versions.  In bf16, K2 and K4 run on the tensor cores (wgmma,
+with tiles loaded by TMA; ``csrc/hopper.cuh``) and K3 in f32 FMA; in
+f32 all three run f32 FMA on the CUDA cores, exact for the f32 parity
+checks.  A bf16 launch that fails raises: nothing falls back.
 
 K2 replaces the TPU kernel ``dcos_commons_tpu/ops/attention.py::_fwd_kernel``
 (launched by ``_pallas_attention``); K3 and K4 replace ``_dq_kernel``
@@ -37,6 +40,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 _NEG = -1e30
+_LOG2E = 1.4426950408889634
 HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -162,6 +166,17 @@ def _check_operands(name, q, k, v, *extra):
     return bh, seq_q, seq_k, hd
 
 
+def _check_tma_alignment(name, *tensors):
+    """The bf16 kernels (K2, K4) read their operands through TMA tensor
+    maps, which need a 16-byte aligned base pointer."""
+    if tensors[0].dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in tensors):
+        raise ValueError(
+            f"{name}: bf16 operands need 16-byte aligned data pointers "
+            f"(TMA), got {[hex(t.data_ptr()) for t in tensors]}"
+        )
+
+
 def _check_rows(name, q, *rows):
     """lse and di: contiguous ``[bh, seq_q]`` f32 beside q."""
     for t in rows:
@@ -192,6 +207,7 @@ def flash_fwd_kernel(
     Returns (o like q, lse [bh, seq_q] f32 or None).  Counts its
     launches in ``flash_fwd_kernel.launches``."""
     bh, seq_q, seq_k, hd = _check_operands("flash_fwd_kernel", q, k, v)
+    _check_tma_alignment("flash_fwd_kernel", q, k, v)
     lib = _library("flash_fwd", [("flash_fwd", 5)])
     o = torch.empty_like(q)
     lse = (
@@ -250,8 +266,18 @@ def flash_dkv_kernel(
     ``flash_dkv_kernel.launches``."""
     bh, seq_q, seq_k, hd = _check_operands("flash_dkv_kernel", q, k, v, do)
     _check_rows("flash_dkv_kernel", q, lse, di)
+    _check_tma_alignment("flash_dkv_kernel", q, k, v, do)
     lib = _library("flash_bwd", _BWD_ENTRY_POINTS)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.dtype == torch.bfloat16:
+        # the wgmma kernel copies each Q tile's 64 lse and di values into
+        # shared memory in one aligned bulk copy: rows padded to whole
+        # tiles, lse in base 2 for its exp2
+        rows = torch.zeros((2, bh, -(-seq_q // 64) * 64), device=q.device,
+                           dtype=torch.float32)
+        rows[0, :, :seq_q] = lse * _LOG2E
+        rows[1, :, :seq_q] = di
+        lse, di = rows[0], rows[1]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_bwd_dkv(

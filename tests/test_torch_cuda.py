@@ -1,6 +1,8 @@
 """The port's hand-written kernels on the card: K1 (Triton RMSNorm), K2
 (CUDA flash-attention forward), K3 and K4 (CUDA flash-attention dq and
-dk/dv) against their plain PyTorch versions, the autograd Function's
+dk/dv) against their plain PyTorch versions -- the bf16 K2 and K4
+(wgmma + TMA) also at the edges of their tiles, with seq_q != seq_k,
+across heads and run to run -- the autograd Function's
 gradients against the plain ones, their launch counters, and the checks
 their wrappers make.  Marked
 ``cuda``: they skip on a host without a CUDA card.  On the card, where
@@ -73,7 +75,7 @@ def _bwd_error(got, want, dtype):
 # K3/K4 against the plain backward, as chip_smoke.py states them: f32
 # max abs error (sums of up to 2048 products in another order, twice
 # nested); bf16 relative Frobenius error (ds and p are rounded to bf16
-# on both sides: the sound kernels read up to 4.9e-5, a backward
+# on both sides: the sound kernels read up to 1.9e-4, a backward
 # without that rounding 2.4e-3 to 2.7e-3)
 _BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-4}
 # the autograd Function against autograd through reference_attention,
@@ -133,6 +135,148 @@ def test_autograd_gradients_match_plain(gen, dtype, causal):
     )
     for g, w in zip(got, want):
         assert _bwd_error(g, w, dtype) <= _GRAD_TOL[dtype]
+
+
+# The bf16 K2 and K4 (wgmma + TMA) at the edges of their tiles: 128-row
+# Q tiles and K/V ring stages in K2, 128-row K tiles and 64-row Q ring
+# stages in K4, 16-wide wgmma steps; lengths around each, where a
+# ragged tile or a permuted register fragment would show
+_TILE_LENGTHS = [1, 15, 63, 64, 65, 127, 128, 129, 200]
+
+
+def _k4_case(gen, bh, sq, sk, hd, causal):
+    """Operands of K4 with lse, di and o from the plain forward, and the
+    plain backward's (dk, dv)."""
+    q, do = (torch.randn(bh, sq, hd, device="cuda", generator=gen)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(bh, sk, hd, device="cuda", generator=gen)
+            .to(torch.bfloat16) for _ in range(2))
+    o = attention.reference_attention(q[None], k[None], v[None], causal)[0]
+    lse = attention.reference_lse(q[None], k[None], causal)
+    di = (do.float() * o.float()).sum(-1)
+    _, dk, dv = attention.reference_attention_bwd(
+        q[None], k[None], v[None], o[None], lse, do[None], causal)
+    return (q, k, v, do, lse, di), (dk[0], dv[0])
+
+
+def _k4_errors(got, want):
+    """bf16 relative Frobenius errors of (dk, dv).  dk's denominator has
+    a floor of 1% of ||dv||: where every query sees a single key (length
+    1), ds = p (dp - di) cancels to rounding noise on both sides and dk
+    is that noise, not a quantity to hold to a relative limit."""
+    dk, dv = got
+    dk_w, dv_w = (w.float() for w in want)
+    floor = 1e-2 * dv_w.norm()
+    return ((dk.float() - dk_w).norm() / torch.maximum(dk_w.norm(), floor)
+            ).item(), ((dv.float() - dv_w).norm() / dv_w.norm()).item()
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", _TILE_LENGTHS)
+def test_k2_bf16_matches_plain_at_tile_edges(gen, s, causal, hd):
+    q, k, v = (torch.randn(3, s, hd, device="cuda", generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    o, lse = attention.flash_fwd_kernel(q, k, v, causal, True)
+    q4, k4, v4 = q[None], k[None], v[None]
+    torch.testing.assert_close(
+        o[None], attention.reference_attention(q4, k4, v4, causal),
+        atol=_TOL[torch.bfloat16][0], rtol=_TOL[torch.bfloat16][1])
+    torch.testing.assert_close(lse, attention.reference_lse(q4, k4, causal),
+                               atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", _TILE_LENGTHS)
+def test_k4_bf16_matches_plain_at_tile_edges(gen, s, causal, hd):
+    args, want = _k4_case(gen, 3, s, s, hd, causal)
+    got = attention.flash_dkv_kernel(*args, causal)
+    torch.cuda.synchronize()
+    for name, err in zip(("dk", "dv"), _k4_errors(got, want)):
+        assert err <= _BWD_TOL[torch.bfloat16], (name, err)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(100, 260), (260, 100)])
+def test_bf16_kernels_match_plain_when_seq_q_differs(gen, sq, sk, causal,
+                                                     hd):
+    """Top-left causal: with seq_q < seq_k the last K tiles see no query
+    (K4 writes zeros there); with seq_q > seq_k the last queries see
+    every key."""
+    q = torch.randn(2, sq, hd, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    k, v = (torch.randn(2, sk, hd, device="cuda", generator=gen)
+            .to(torch.bfloat16) for _ in range(2))
+    o, lse = attention.flash_fwd_kernel(q, k, v, causal, True)
+    torch.testing.assert_close(
+        o[None], attention.reference_attention(q[None], k[None], v[None],
+                                               causal),
+        atol=_TOL[torch.bfloat16][0], rtol=_TOL[torch.bfloat16][1])
+    torch.testing.assert_close(
+        lse, attention.reference_lse(q[None], k[None], causal), atol=1e-4,
+        rtol=1e-5)
+    args, want = _k4_case(gen, 2, sq, sk, hd, causal)
+    got = attention.flash_dkv_kernel(*args, causal)
+    for name, err in zip(("dk", "dv"), _k4_errors(got, want)):
+        assert err <= _BWD_TOL[torch.bfloat16], (name, err)
+
+
+def _bf16_heads(gen, bh, s, hd, big):
+    """[bh, s, hd] bf16 with every head but the middle one scaled to
+    large values."""
+    x = torch.randn(bh, s, hd, device="cuda", generator=gen)
+    x[torch.arange(bh, device="cuda") != bh // 2] *= big
+    return x.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_bf16_kernels_keep_heads_apart(gen, hd):
+    """A ragged last tile must read zeros past its own head, not the
+    next head's rows: each head of a bh = 3 launch equals, bit for bit,
+    the launch on that head alone, with the neighbours of the middle
+    head filled with large values."""
+    s = 129
+    q, k, v, do = (_bf16_heads(gen, 3, s, hd, 300.0) for _ in range(4))
+    o, lse = attention.flash_fwd_kernel(q, k, v, True, True)
+    di = (do.float() * o.float()).sum(-1)
+    dk, dv = attention.flash_dkv_kernel(q, k, v, do, lse, di, True)
+    for h in range(3):
+        one = [t[h:h + 1].contiguous() for t in (q, k, v, do)]
+        o1, lse1 = attention.flash_fwd_kernel(*one[:3], True, True)
+        dk1, dv1 = attention.flash_dkv_kernel(
+            *one, lse[h:h + 1].contiguous(), di[h:h + 1].contiguous(), True)
+        assert torch.equal(o1, o[h:h + 1]) and torch.equal(lse1, lse[h:h + 1])
+        assert torch.equal(dk1, dk[h:h + 1]) and torch.equal(dv1, dv[h:h + 1])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_kernels_are_deterministic(gen, causal):
+    """No atomics: two launches give the same bits."""
+    q, k, v, do = (torch.randn(4, 300, 128, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = attention.flash_fwd_kernel(q, k, v, causal, True)
+    o2, lse2 = attention.flash_fwd_kernel(q, k, v, causal, True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    di = (do.float() * o.float()).sum(-1)
+    first = attention.flash_dkv_kernel(q, k, v, do, lse, di, causal)
+    second = attention.flash_dkv_kernel(q, k, v, do, lse, di, causal)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_bf16_wrappers_refuse_unaligned_pointers(gen):
+    """TMA needs 16-byte aligned base pointers: a contiguous view that
+    starts one element into its storage is refused, not launched."""
+    flat = torch.randn(2 * 64 * 64 + 1, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    x = flat[1:].view(2, 64, 64)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        attention.flash_fwd_kernel(x, x, x, True)
+    rows = torch.zeros(2, 64, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        attention.flash_dkv_kernel(x, x, x, x, rows, rows, True)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):

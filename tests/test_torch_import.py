@@ -120,3 +120,27 @@ def test_entry_points_default_to_the_card():
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel library is named by a hash of its .cu and of every
+    csrc/*.cuh, so an edit to a shared header (hopper.cuh) gives every
+    library a new path and never loads a stale build.  Needs no nvcc."""
+    import shutil
+
+    from dcos_commons_tpu_torch import device
+
+    for name in os.listdir(device.CSRC_DIR):
+        if name.endswith((".cu", ".cuh")):
+            shutil.copy(os.path.join(device.CSRC_DIR, name), tmp_path)
+    monkeypatch.setattr(device, "CSRC_DIR", str(tmp_path))
+    names = ("flash_fwd", "flash_bwd")
+    before = {n: device._library_path(n) for n in names}
+    assert before == {n: device._library_path(n) for n in names}
+    header = tmp_path / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: device._library_path(n) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    assert all(os.path.dirname(after[n]) == device.BUILD_DIR for n in names)
+    (tmp_path / "extra.cuh").write_text("#pragma once\n")
+    assert all(device._library_path(n) != after[n] for n in names)
