@@ -3,13 +3,16 @@
 Run from the repo root: ``python3 chip_smoke.py`` (no arguments, one
 CUDA card).  Phases, each fatal on failure:
 
-1. Device and build: the card's name and power limit (nvidia-smi), the
-   kernels built from the sources in the checkout (CUDA C++ with nvcc,
-   Triton at first launch), build seconds.
+1. Device and build: the card's name and power limit (nvidia-smi), every
+   kernel built from the CUDA C++ sources in the checkout (one nvcc per
+   source, all started together), build seconds.
 2. Each kernel against its plain PyTorch version on the card, at the
-   shapes of the serving path, within the tolerances in ``TOL``; kernel,
-   plain and library times (CUDA events) beside the least time the card
-   could take (``bound_ms``).
+   shapes of the serving path (and K1 at the train worker's [4096,
+   2048]), within the tolerances in ``TOL``; kernel, plain and library
+   times (CUDA events) beside the least time the card could take
+   (``bound_ms``).  K1's lines also split its back-to-back time into
+   the device time of a launch (a CUDA graph of launches replayed under
+   events) and the host microseconds of a wrapper call.
 2b. The backward kernels K3 (dq) and K4 (dk/dv) against the plain
    backward (``reference_attention_bwd``) at the flagship training shape
    [192, 2048, 128] bf16 causal, at ragged shapes causal and not, f32
@@ -32,7 +35,11 @@ CUDA card).  Phases, each fatal on failure:
    second run resumes from it to step 8; K1-K4 launch exactly the
    counts the remat policy implies.  Then ``make_train_step`` at
    bench.py's training batch (12) is timed: tokens/s, step ms, peak
-   device memory.  Every kernel is then held against its plain version
+   device memory; one more step runs under ``torch.profiler``, which
+   prints the ten device operations that took the most time in it, the
+   port's kernels, the device time by kind of work and the device's
+   busy share of the step.  Every kernel is then held
+   against its plain version
    at each shape these train runs launched it at (K1 [24576, 2048] and
    [4096, 2048] bf16, K2-K4 [192 or 32, 2048, 2048, 128] bf16 causal),
    within ``TOL``.
@@ -43,11 +50,12 @@ time over the library call's.  Each phase has its own time limit: one
 that outlives it (a kernel that hangs the card) is named and ends the
 run with exit code 3.
 
-The line before the last is a JSON object ``{"kernels": [...]}``; the
-CUDA entries' ``design`` says how each computes (K2 and K4: wgmma with
-TMA-fed tiles in bf16, f32 FMA in f32; K3: f32 FMA).  The last line is
-``{"ok": true, "device": {...}}``.  Without CUDA, or without the port
-beside it, the script fails before printing either.
+The line before the last is a JSON object ``{"kernels": [...]}``; each
+entry's ``design`` says how it computes (K1: a warp a row with 16-byte
+vector loads, launched through ctypes; K2-K4: wgmma with TMA-fed tiles
+in bf16, f32 FMA in f32).  The last line is ``{"ok": true, "device":
+{...}}``.  Without CUDA, or without the port beside it, the script
+fails before printing either.
 """
 
 import json
@@ -121,6 +129,42 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, n=50, reps=5):
+    """Device time of one ``fn()``: n calls captured in a CUDA graph,
+    the graph replayed under CUDA events, so no host work lies between
+    the launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * n)
+
+
+def host_us(fn, n=200):
+    """Host microseconds of one ``fn()`` call: the host clock around n
+    back-to-back calls, before the card is waited for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
 
 
 def bound(n_bytes, flops, dtype):
@@ -217,14 +261,22 @@ def k1_case(rows, d, dtype, gen):
                 rmsnorm._reference(x, w), TOL[("K1", dtype)])
     ms = time_ms(lambda: kern(x, w))
     plain_ms = time_ms(lambda: rmsnorm._reference(x, w))
-    lib_ms = time_ms(
-        lambda: torch.nn.functional.rms_norm(x, (d,), w, eps=rmsnorm.EPS)
-    )
+
+    def library():
+        return torch.nn.functional.rms_norm(x, (d,), w, eps=rmsnorm.EPS)
+
+    lib_ms = time_ms(library)
+    # each captured call keeps its own output in the graph's memory pool
+    n_graph = 20 if rows * d > 2**22 else 50
     item = x.element_size()
     b_ms, b_by = bound(2 * rows * d * item + d * item, 4 * rows * d,
                        torch.float32)
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by, flops=4 * rows * d)
+                bound_ms=b_ms, bound_by=b_by, flops=4 * rows * d,
+                device_ms=device_ms(lambda: kern(x, w), n_graph),
+                host_us=host_us(lambda: kern(x, w)),
+                library_device_ms=device_ms(library, n_graph),
+                library_host_us=host_us(library))
 
 
 def k2_pairs(sq, sk, causal):
@@ -372,13 +424,23 @@ def phase_backward(gen):
     for bh, sq, sk, hd, causal, dtype in shapes:
         r3, r4 = k34_case(bh, sq, sk, hd, dtype, causal, gen,
                           iters=5 if sq > 1000 else 20)
-        for name, r in (("K3", r3), ("K4", r4)):
-            errs[name] = max(errs[name], r["err"])
-            log(f"{name} flash_bwd [{bh}, {sq}, {sk}, {hd}] causal={causal} "
+        design = "wgmma+tma" if dtype == torch.bfloat16 else "fma"
+        for name, r in (("K3 flash_dq", r3), ("K4 flash_dkv", r4)):
+            errs[name[:2]] = max(errs[name[:2]], r["err"])
+            log(f"{name} ({design}) [{bh}, {sq}, {sk}, {hd}] causal={causal} "
                 f"{dtype}: checked error {r['metric']:.3e}  {fmt(r)}")
         if train_shape is None:
             train_shape = (r3, r4)
     return errs, train_shape
+
+
+def fmt_k1(r):
+    """A K1 case's log: ``fmt`` and the split of its back-to-back time
+    into device time and host time, beside ``F.rms_norm``'s."""
+    return (f"{fmt(r)}  | device {r['device_ms']:.4f} ms/launch, host "
+            f"{r['host_us']:.1f} us/call; F.rms_norm device "
+            f"{r['library_device_ms']:.4f} ms, host "
+            f"{r['library_host_us']:.1f} us")
 
 
 def fmt(r):
@@ -401,11 +463,13 @@ def fmt(r):
 
 def phase_kernels(gen):
     errs = {"K1": 0.0, "K2": 0.0}
-    for dtype in (torch.bfloat16, torch.float32):
-        for rows in (1, 8, 64, 960):
-            r = k1_case(rows, 2048, dtype, gen)
-            errs["K1"] = max(errs["K1"], r["err"])
-            log(f"K1 rms_norm [{rows}, 2048] {dtype}: {fmt(r)}")
+    k1_shapes = [(rows, dtype) for dtype in (torch.bfloat16, torch.float32)
+                 for rows in (1, 8, 64, 960)]
+    # ... and the train worker's shape, where K1 is launch-bound too
+    for rows, dtype in k1_shapes + [(4096, torch.bfloat16)]:
+        r = k1_case(rows, 2048, dtype, gen)
+        errs["K1"] = max(errs["K1"], r["err"])
+        log(f"K1 rms_norm [{rows}, 2048] {dtype}: {fmt_k1(r)}")
     for dtype in (torch.bfloat16, torch.float32):
         for s in (64, 200, 960):
             for causal in (True, False):
@@ -679,9 +743,65 @@ def run_train_worker(env, logs, start, steps):
     return launches
 
 
+# kernel names in a profile: the port's own, and kinds of library work
+PORT_KERNELS = ("flash_fwd_", "flash_dq_", "flash_dkv_", "rms_norm_rows")
+WORK_KINDS = (
+    ("port kernels (K1-K4)", PORT_KERNELS),
+    ("matmuls", ("gemm", "nvjet", "xmma", "cutlass")),
+    ("elementwise and reductions (aten)", ("at::native",)),
+)
+
+
+def profile_step(run, top=10):
+    """One ``run()`` under ``torch.profiler``: logs the ``top`` device
+    operations by device time, the port's kernels, the device time by
+    kind of work, and the device's busy time against the step's
+    host-clock time (with the profiler on).  Fails when the profiler
+    records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    if not ops:
+        raise AssertionError("torch.profiler recorded no device time")
+    busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    log(f"profiled step: {wall_ms:.1f} ms on the host clock (profiler on), "
+        f"device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}) in "
+        f"{sum(e.count for e in ops)} device operations of "
+        f"{len(ops)} kinds; the top {top} by device time:")
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
+        ms = e.self_device_time_total / 1e3
+        log(f"  {ms:9.3f} ms {ms / busy_ms:6.1%} x{e.count:<5d} "
+            f"{e.key[:110]}")
+    # the port's kernels, and the step's device time by kind of work
+    for e in ops:
+        if any(k in e.key for k in PORT_KERNELS):
+            ms = e.self_device_time_total / 1e3
+            log(f"  port kernel {ms:9.3f} ms {ms / busy_ms:6.1%} "
+                f"x{e.count:<5d} {e.key[:90]}")
+    split = {}
+    for e in ops:
+        kind = next((kind for kind, marks in WORK_KINDS
+                     if any(m in e.key for m in marks)), "other")
+        split[kind] = split.get(kind, 0.0) + e.self_device_time_total / 1e3
+    log("  by kind: " + ", ".join(
+        f"{kind} {ms:.1f} ms ({ms / busy_ms:.1%})"
+        for kind, ms in sorted(split.items(), key=lambda kv: -kv[1])))
+
+
 def time_train_step(logs, warmup=2, steps=5):
     """make_train_step at bench.py's training shape: tokens/s, step ms
-    and peak device memory (host clock around synchronised steps)."""
+    and peak device memory (host clock around synchronised steps), then
+    one more step under the profiler."""
     from dcos_commons_tpu_torch.models.transformer import (
         adamw, config_from_env, init_params, make_train_step,
     )
@@ -706,17 +826,18 @@ def time_train_step(logs, warmup=2, steps=5):
         loss = step(params, tokens, targets)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {n: s.inner.launches for n, s in logs.items()}
-    per_step = launches_per_step(config.n_layers, config.no_remat_layers)
-    if launches != {n: per_step[n] * steps for n in logs}:
-        raise AssertionError(f"timed steps launched {launches}")
+    peak = torch.cuda.max_memory_allocated()
     if not np.isfinite(float(loss)):
         raise AssertionError(f"train loss {float(loss)}")
-    peak = torch.cuda.max_memory_allocated()
     log(f"train step [batch {TRAIN_BATCH}, seq {config.max_seq}] bf16, "
         f"remat full + 1 stored layer: {dt / steps * 1e3:.1f} ms/step, "
         f"{TRAIN_BATCH * config.max_seq * steps / dt:,.0f} tokens/s, peak "
         f"device memory {peak / 2**30:.2f} GiB, loss {float(loss):.4f}")
+    profile_step(lambda: step(params, tokens, targets))
+    launches = {n: s.inner.launches for n, s in logs.items()}
+    per_step = launches_per_step(config.n_layers, config.no_remat_layers)
+    if launches != {n: per_step[n] * (steps + 1) for n in logs}:
+        raise AssertionError(f"timed and profiled steps launched {launches}")
     del params, step
     torch.cuda.empty_cache()
     return launches
@@ -766,7 +887,7 @@ def check_train_shapes(shapes, gen, checked):
     for rows, d, dtype in sorted(shapes["K1"] - checked["K1"], key=str):
         r = k1_case(rows, d, dtype, gen)
         errs["K1"] = max(errs["K1"], r["err"])
-        log(f"K1 rms_norm at train shape [{rows}, {d}] {dtype}: {fmt(r)}")
+        log(f"K1 rms_norm at train shape [{rows}, {d}] {dtype}: {fmt_k1(r)}")
     for bh, sq, sk, hd, causal, dtype in sorted(shapes["K2"] - checked["K2"],
                                                 key=str):
         r = k2_case(bh, sq, sk, hd, dtype, causal, gen, iters=5)
@@ -810,13 +931,7 @@ def main():
     t0 = time.monotonic()
     build_cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.ones(2, 64, device="cuda")
-    rmsnorm.rms_norm_kernel(x, x[0])       # triton compiles here
-    for dtype in (torch.float32, torch.bfloat16):
-        attention.flash_fwd_kernel(
-            *(torch.ones(1, 8, 64, device="cuda", dtype=dtype),) * 3, True)
-    torch.cuda.synchronize()
-    log(f"build: {time.monotonic() - t0:.1f} s (nvcc + triton)")
+    log(f"build: {time.monotonic() - t0:.1f} s (nvcc, every csrc/*.cu)")
 
     # the main path's shapes, recorded as it runs
     logs = {
@@ -908,27 +1023,29 @@ def main():
             or attn_train not in train_shapes["K3"]):
         raise AssertionError(f"train path shapes {train_shapes}")
     r1 = k1_case(*k1_train, gen)
-    log(f"K1 at the training shape {list(k1_train)}: {fmt(r1)}")
+    log(f"K1 at the training shape {list(k1_train)}: {fmt_k1(r1)}")
     r2 = k2_case(*attn_train[:4], torch.bfloat16, True, gen)
     log(f"K2 at the training shape {list(attn_train[:4])}: {fmt(r2)}")
     # ... and at every other shape the train path gave it
     checked = {
-        "K1": {k1_train} | {(rows, 2048, dt) for rows in (1, 8, 64, 960)
-                            for dt in (torch.bfloat16, torch.float32)},
+        "K1": {k1_train, (4096, 2048, torch.bfloat16)}
+        | {(rows, 2048, dt) for rows in (1, 8, 64, 960)
+           for dt in (torch.bfloat16, torch.float32)},
         "K2": {attn_train}, "K3": {attn_train}, "K4": {attn_train},
     }
     for name, err in check_train_shapes(train_shapes, gen, checked).items():
         errs[name] = max(errs[name], err)
     rows, d, dt = k1_shape
     log(f"K1 at its busiest serving shape {k1_shape}: "
-        f"{fmt(k1_case(rows, d, dt, gen))}")
+        f"{fmt_k1(k1_case(rows, d, dt, gen))}")
     bh, sq, sk, hd, causal, dt2 = k2_shape
     log(f"K2 at its busiest serving shape {k2_shape}: "
         f"{fmt(k2_case(bh, sq, sk, hd, dt2, causal, gen))}")
     pkg = "dcos_commons_tpu_torch"
     kernels = [
-        dict(name="K1 rms_norm", route="triton",
-             source=f"{pkg}/ops/rmsnorm.py",
+        dict(name="K1 rms_norm", route="cuda",
+             design="warp a row, 16-byte vector loads, ctypes launch",
+             source=f"{pkg}/csrc/rmsnorm.cu",
              replaces="dcos_commons_tpu/ops/rmsnorm.py:16",
              launches=launches["K1"],
              max_abs_err=max(errs["K1"], r1["err"]), ms=r1["ms"],
@@ -944,7 +1061,7 @@ def main():
              bound_by=r2["bound_by"], library_ms=r2["library_ms"]),
     ]
     for name, label, line, design, r in (
-        ("K3", "K3 flash_dq", 108, "fma (bf16, f32)", r3),
+        ("K3", "K3 flash_dq", 108, "wgmma+tma (bf16), fma (f32)", r3),
         ("K4", "K4 flash_dkv", 172, "wgmma+tma (bf16), fma (f32)", r4),
     ):
         # plain_ms and library_ms time the whole backward (dq, dk, dv):

@@ -1,11 +1,11 @@
 // Kernels K3 and K4: flash-attention backward for Hopper (sm_90a).
 //
-// K3 (flash_dq_kernel) replaces the TPU kernel
-// dcos_commons_tpu/ops/attention.py::_dq_kernel, K4 (flash_dkv_kernel)
-// replaces ::_dkv_kernel; both were launched by _pallas_attention_bwd.
-// From the forward's saved lse [bh, seq_q] f32 and di = rowsum(do * o)
-// [bh, seq_q] f32 (computed by the caller, as the JAX package computes
-// it outside its kernels):
+// K3 (dq) replaces the TPU kernel
+// dcos_commons_tpu/ops/attention.py::_dq_kernel, K4 (dk, dv) replaces
+// ::_dkv_kernel; both were launched by _pallas_attention_bwd.  From the
+// forward's saved lse [bh, seq_q] f32 and di = rowsum(do * o) [bh, seq_q]
+// f32 (computed by the caller, as the JAX package computes it outside its
+// kernels):
 //
 //   s  = scale * q k^T                 (f32, q streamed unscaled)
 //   p  = exp(s - lse), exactly 0 where masked
@@ -14,7 +14,7 @@
 //   dq = scale * ds k                  K3: one block per (bh, Q tile)
 //   dv = p^T do,  dk = scale * ds^T q  K4: one block per (bh, K tile)
 //
-// ds (K3) and p, ds (K4) are rounded to the operand dtype before their
+// In bf16, ds (K3) and p, ds (K4) are rounded to bf16 before their
 // products, as the TPU kernels round them (ds.astype(k.dtype),
 // p.astype(do.dtype), ds.astype(q.dtype)); every sum is f32.  The
 // causal mask is top-left aligned (query i sees keys j <= i).  K3's
@@ -35,22 +35,20 @@
 // training lengths (s = 2048, hd = 128) both are past the memory ridge
 // and the tensor-core rate is the bound.  Two designs:
 //
-// K4 in bf16 (every K4 launch of the training path) runs its products on
-// the tensor cores through wgmma, with tiles loaded by TMA: see the note
-// at flash_dkv_wgmma below.
+// bf16 (every K3 and K4 launch of the training path): the products run
+// on the tensor cores through wgmma, with tiles loaded by TMA; see the
+// notes at flash_dkv_wgmma (K4) and flash_dq_wgmma (K3) below.
 //
-// K3 (both dtypes) and K4 in f32 (only the f32 parity checks) compute in
-// f32 FMA on the CUDA cores (no mma/wgmma, no TMA); moving K3 to the
-// tensor cores is a later PR's work.  What that design keeps: the s x s
-// probability and gradient matrices never leave the block.  Tiles and
-// registers: 64-row Q and K tiles, 256 threads as a 16 x 16 grid.  Each
-// thread owns 4 rows x hd/16 columns of each f32 accumulator (K3: dq,
-// 32 registers at hd 128; K4: dk and dv, 64) and 4 x 4 entries of s and
-// dp.  A 128-thread block would hold 128 accumulator registers a thread
-// in K4 before anything else.  Tiles stage in shared memory as f32 with
-// a padded row (hd + 1 floats, so rows fall on different banks): K3
-// 149,248 bytes and K4 165,888 at hd 128, opted in with
-// cudaFuncSetAttribute; one block per SM.
+// f32 (only the f32 parity checks; TF32 would break their limits): the
+// first design, kept exact, f32 FMA on the CUDA cores (no mma/wgmma, no
+// TMA).  What it keeps: the s x s probability and gradient matrices
+// never leave the block.  64-row Q and K tiles, 256 threads as a 16 x 16
+// grid.  Each thread owns 4 rows x hd/16 columns of each f32 accumulator
+// (K3: dq, 32 registers at hd 128; K4: dk and dv, 64) and 4 x 4 entries
+// of s and dp.  Tiles stage in shared memory as f32 with a padded row
+// (hd + 1 floats, so rows fall on different banks): K3 149,248 bytes and
+// K4 165,888 at hd 128, opted in with cudaFuncSetAttribute; one block
+// per SM.
 //
 // Plain C interface for ctypes (see ops/attention.py): each entry
 // point returns a cudaError_t, 0 on success; the caller raises on
@@ -69,36 +67,16 @@ constexpr int kBlock = 64;     // rows of a Q tile and of a K tile
 constexpr int kThreads = 256;  // 16 x 16 grid of threads over each tile
 constexpr int kLS = kBlock + 1;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// x rounded to T and read back: the operand-dtype cast before a product
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
-
-// rows [r0, r0 + kBlock) of a [seq, HD] matrix into a padded f32 tile;
-// rows past seq read as 0
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int seq) {
+// rows [r0, r0 + kBlock) of a [seq, HD] matrix into a padded tile; rows
+// past seq read as 0
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int r0, int seq) {
   constexpr int LD = HD + 1;
   for (int i = threadIdx.x; i < kBlock * HD; i += kThreads) {
     const int r = i / HD, c = i % HD;
     const int row = r0 + r;
-    dst[r * LD + c] = row < seq ? to_float(src[(size_t)row * HD + c]) : 0.f;
+    dst[r * LD + c] = row < seq ? src[(size_t)row * HD + c] : 0.f;
   }
 }
 
@@ -124,14 +102,14 @@ constexpr size_t dkv_smem_bytes() {
          (4 * kBlock * (HD + 1) + 2 * kBlock * kLS + 2 * kBlock);
 }
 
-// K3: dq for one 64-row Q tile, streaming K/V tiles
-template <typename T, int HD>
+// K3 in f32: dq for one 64-row Q tile, streaming K/V tiles
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ di, T* __restrict__ dq,
-                    int seq_q, int seq_k, int causal, float scale) {
+    flash_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ di,
+                 float* __restrict__ dq, int seq_q, int seq_k, int causal,
+                 float scale) {
   constexpr int LD = HD + 1;
   constexpr int kCols = HD / 16;  // accumulator columns: tx + 16 * c
 
@@ -148,11 +126,11 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = threadIdx.x / 16;
   const int q0 = blockIdx.x * kBlock;
   const size_t bh = blockIdx.y;
-  const T* kb = k + bh * seq_k * HD;
-  const T* vb = v + bh * seq_k * HD;
+  const float* kb = k + bh * seq_k * HD;
+  const float* vb = v + bh * seq_k * HD;
 
-  load_tile<T, HD>(qs, q + bh * seq_q * HD, q0, seq_q);
-  load_tile<T, HD>(dos, dout + bh * seq_q * HD, q0, seq_q);
+  load_tile<HD>(qs, q + bh * seq_q * HD, q0, seq_q);
+  load_tile<HD>(dos, dout + bh * seq_q * HD, q0, seq_q);
   load_rows(lse_s, lse + bh * seq_q, q0, seq_q);
   load_rows(di_s, di + bh * seq_q, q0, seq_q);
 
@@ -172,8 +150,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBlock;
     __syncthreads();  // the previous tile's K and ds are consumed
-    load_tile<T, HD>(ks, kb, k0, seq_k);
-    load_tile<T, HD>(vs, vb, k0, seq_k);
+    load_tile<HD>(ks, kb, k0, seq_k);
+    load_tile<HD>(vs, vb, k0, seq_k);
     __syncthreads();
 
     // s and dp for this thread's 4 rows (ty + 16 r) x 4 keys (tx + 16 c)
@@ -213,7 +191,7 @@ __global__ void __launch_bounds__(kThreads)
         const bool valid =
             qi < seq_q && kj < seq_k && (!causal || qi >= kj);
         const float p = valid ? expf(s[r][c] * scale - lse_s[row]) : 0.f;
-        dss[row * kLS + key] = round_to<T>(p * (dp[r][c] - di_s[row]));
+        dss[row * kLS + key] = p * (dp[r][c] - di_s[row]);
       }
     }
     __syncthreads();
@@ -236,22 +214,21 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < 4; ++r) {
     const int qi = q0 + ty + 16 * r;
     if (qi >= seq_q) continue;
-    T* out = dq + (bh * seq_q + qi) * HD;
+    float* out = dq + (bh * seq_q + qi) * HD;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c)
-      out[tx + 16 * c] = from_float<T>(acc[r][c] * scale);
+    for (int c = 0; c < kCols; ++c) out[tx + 16 * c] = acc[r][c] * scale;
   }
 }
 
-// K4: dk and dv for one 64-row K tile, streaming Q/dO/lse/di tiles
-template <typename T, int HD>
+// K4 in f32: dk and dv for one 64-row K tile, streaming Q/dO/lse/di
+// tiles
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ di, T* __restrict__ dk,
-                     T* __restrict__ dv, int seq_q, int seq_k, int causal,
-                     float scale) {
+    flash_dkv_fma(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ di,
+                  float* __restrict__ dk, float* __restrict__ dv, int seq_q,
+                  int seq_k, int causal, float scale) {
   constexpr int LD = HD + 1;
   constexpr int kCols = HD / 16;
 
@@ -269,13 +246,13 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = threadIdx.x / 16;
   const int k0 = blockIdx.x * kBlock;
   const size_t bh = blockIdx.y;
-  const T* qb = q + bh * seq_q * HD;
-  const T* dob = dout + bh * seq_q * HD;
+  const float* qb = q + bh * seq_q * HD;
+  const float* dob = dout + bh * seq_q * HD;
   const float* lseb = lse + bh * seq_q;
   const float* dib = di + bh * seq_q;
 
-  load_tile<T, HD>(ks, k + bh * seq_k * HD, k0, seq_k);
-  load_tile<T, HD>(vs, v + bh * seq_k * HD, k0, seq_k);
+  load_tile<HD>(ks, k + bh * seq_k * HD, k0, seq_k);
+  load_tile<HD>(vs, v + bh * seq_k * HD, k0, seq_k);
 
   float dk_acc[4][kCols], dv_acc[4][kCols];
 #pragma unroll
@@ -290,8 +267,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = t_start; t < n_tiles; ++t) {
     const int q0 = t * kBlock;
     __syncthreads();  // the previous tile's Q, dO, p and ds are consumed
-    load_tile<T, HD>(qs, qb, q0, seq_q);
-    load_tile<T, HD>(dos, dob, q0, seq_q);
+    load_tile<HD>(qs, qb, q0, seq_q);
+    load_tile<HD>(dos, dob, q0, seq_q);
     load_rows(lse_s, lseb, q0, seq_q);
     load_rows(di_s, dib, q0, seq_q);
     __syncthreads();
@@ -335,8 +312,8 @@ __global__ void __launch_bounds__(kThreads)
             qi < seq_q && kj < seq_k && (!causal || qi >= kj);
         const float p =
             valid ? expf(s[r][c] * scale - lse_s[query]) : 0.f;
-        pt[key * kLS + query] = round_to<T>(p);
-        dst[key * kLS + query] = round_to<T>(p * (dp[r][c] - di_s[query]));
+        pt[key * kLS + query] = p;
+        dst[key * kLS + query] = p * (dp[r][c] - di_s[query]);
       }
     }
     __syncthreads();
@@ -368,51 +345,53 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < 4; ++r) {
     const int kj = k0 + ty + 16 * r;
     if (kj >= seq_k) continue;
-    T* dko = dk + (bh * seq_k + kj) * HD;
-    T* dvo = dv + (bh * seq_k + kj) * HD;
+    float* dko = dk + (bh * seq_k + kj) * HD;
+    float* dvo = dv + (bh * seq_k + kj) * HD;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       // q was streamed unscaled, so dk takes the single scale here
-      dko[tx + 16 * c] = from_float<T>(dk_acc[r][c] * scale);
-      dvo[tx + 16 * c] = from_float<T>(dv_acc[r][c]);
+      dko[tx + 16 * c] = dk_acc[r][c] * scale;
+      dvo[tx + 16 * c] = dv_acc[r][c];
     }
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* di,
-                      void* dq, int bh, int seq_q, int seq_k, int causal,
-                      cudaStream_t stream) {
+template <int HD>
+cudaError_t launch_dq_fma(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse,
+                          const float* di, void* dq, int bh, int seq_q,
+                          int seq_k, int causal, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dq_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_dq_fma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq_q + kBlock - 1) / kBlock, bh);
-  flash_dq_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
-      static_cast<T*>(dq), seq_q, seq_k, causal, 1.0f / sqrtf((float)HD));
+  flash_dq_fma<HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      di, static_cast<float*>(dq), seq_q, seq_k, causal,
+      1.0f / sqrtf((float)HD));
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse, const float* di,
-                       void* dk, void* dv, int bh, int seq_q, int seq_k,
-                       int causal, cudaStream_t stream) {
+template <int HD>
+cudaError_t launch_dkv_fma(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* di, void* dk, void* dv, int bh,
+                           int seq_q, int seq_k, int causal,
+                           cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dkv_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_dkv_fma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq_k + kBlock - 1) / kBlock, bh);
-  flash_dkv_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
-      static_cast<T*>(dk), static_cast<T*>(dv), seq_q, seq_k, causal,
-      1.0f / sqrtf((float)HD));
+  flash_dkv_fma<HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      di, static_cast<float*>(dk), static_cast<float*>(dv), seq_q, seq_k,
+      causal, 1.0f / sqrtf((float)HD));
   return cudaGetLastError();
 }
 
@@ -710,14 +689,269 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---- K3 in bf16: wgmma + TMA ----------------------------------------------
+//
+// K2's orientation (Q rows own every product, so dQ stays in registers
+// for the whole loop) with K4's register plan: one block of two
+// warpgroups owns (bh, a 128-row Q tile), 64 Q rows each, and no
+// producer warpgroup (a producer costs the consumers the launch-time
+// registers ptxas needs to pipeline their wgmmas; see K4 above).  One
+// thread of warpgroup 0 issues every TMA load: the Q and dO tiles once,
+// then 64-row K and V tiles through a 3-stage ring (full and empty
+// barriers per stage; loads run two tiles ahead of the issuing
+// warpgroup).  Per K tile each warpgroup computes
+//
+//   S  = Q K^T,  dP = dO V^T          wgmma m64n64k16, A and B in smem
+//   P  = exp2(S scale log2 e - lse log2 e), exactly 0 where masked
+//   dS = P (dP - di)                  rounded to bf16 in place: the
+//                                     accumulator fragment is the A
+//                                     fragment of the next product
+//   dQ += bf16(dS) K                  wgmma m64nHDk16, A from registers,
+//                                     K as an MN-major B operand (K2's
+//                                     P V with V -> K)
+//
+// S and dP take 32 f32 registers each beside dQ's HD / 2.  lse and di
+// belong to Q rows, so each thread loads its two rows' values once per
+// block with plain global loads.  A warpgroup whose 64 rows all lie
+// before a K tile (the causal diagonal of the 128-row tile) or past
+// seq_q skips that tile's products but still releases its stage.  The
+// blocks of a head start with the longest Q tile, as K2's do.  Every dQ
+// element has one writer: no atomics, the same bits run to run.
+
+constexpr int kDqTileQ = 128;   // Q rows of a block: two warpgroups x 64
+constexpr int kDqTileK = 64;    // K/V rows of a ring stage
+constexpr int kDqThreads = 256;  // two warpgroups
+constexpr int kDqQHalf = kDqTileQ * 128;  // a [128][64] bf16 column half
+constexpr int kDqKHalf = kDqTileK * 128;  // a [64][64] bf16 column half
+
+template <int HD>
+constexpr size_t dq_wgmma_smem_bytes() {
+  // Q, dO, the K and V ring, 7 barriers, slack to align the base to 1024
+  return (size_t)(HD / 64) * (2 * kDqQHalf + 2 * kStages * kDqKHalf) + 64 +
+         1024;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kDqThreads, 1)
+    flash_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ di,
+                   __nv_bfloat16* __restrict__ dq, int seq_q, int seq_k,
+                   int causal, float scale) {
+  constexpr int H = HD / 64;  // column halves of a tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base =
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = base;
+  uint8_t* dos = qs + H * kDqQHalf;
+  uint8_t* ks = dos + H * kDqQHalf;              // [stage][half]
+  uint8_t* vs = ks + kStages * H * kDqKHalf;     // [stage][half]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + kStages * H * kDqKHalf);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqTileQ;  // longest first
+  const int bh = blockIdx.y;
+  int n_tiles = (seq_k + kDqTileK - 1) / kDqTileK;
+  if (causal) {
+    // the tile's last real query row sees keys up to its own index
+    const int last = min(q0 + kDqTileQ, seq_q);
+    n_tiles = min(n_tiles, (last + kDqTileK - 1) / kDqTileK);
+  }
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kDqThreads);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the K and V tiles of iteration t into stage t % kStages, once both
+  // warpgroups have released that stage's previous tile
+  const bool issuer = threadIdx.x == 0;
+  auto load_kv = [&](int t) {
+    const int s = t % kStages;
+    if (t >= kStages) hopper::mbar_wait(&empty[s], (t / kStages - 1) & 1);
+    hopper::mbar_arrive_expect_tx(&full[s], 2 * H * kDqKHalf);
+    for (int h = 0; h < H; ++h) {
+      hopper::tma_load_3d(ks + (s * H + h) * kDqKHalf, &tm_k, &full[s],
+                          64 * h, t * kDqTileK, bh);
+      hopper::tma_load_3d(vs + (s * H + h) * kDqKHalf, &tm_v, &full[s],
+                          64 * h, t * kDqTileK, bh);
+    }
+  };
+  if (issuer && n_tiles > 0) {
+    hopper::mbar_arrive_expect_tx(q_full, 2 * H * kDqQHalf);
+    for (int h = 0; h < H; ++h) {
+      hopper::tma_load_3d(qs + h * kDqQHalf, &tm_q, q_full, 64 * h, q0, bh);
+      hopper::tma_load_3d(dos + h * kDqQHalf, &tm_do, q_full, 64 * h, q0,
+                          bh);
+    }
+    for (int t = 0; t < min(kStages, n_tiles); ++t) load_kv(t);
+  }
+
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int m0 = q0 + 64 * (threadIdx.x / 128);   // first Q row owned
+  const int r_in = 16 * (tid / 32) + lane / 4;    // rows r_in, r_in + 8
+  const int c0 = 2 * (lane % 4);
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t q_off = (m0 - q0) * 128;  // the slab's rows in each half
+
+  // this thread's two rows: lse in base 2 and di (0 past seq_q, where
+  // Q and dO read as zero, so ds is 0 there and the row is never stored)
+  float lse2[2], di_r[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = m0 + r_in + 8 * j;
+    const size_t at = (size_t)bh * seq_q + row;
+    lse2[j] = row < seq_q ? lse[at] * kLog2e : 0.f;
+    di_r[j] = row < seq_q ? di[at] : 0.f;
+  }
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+  if (n_tiles > 0) hopper::mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    const int k0 = t * kDqTileK;
+    hopper::mbar_wait(&full[s], (t / kStages) & 1);
+    // warpgroup-uniform: the slab has rows in range, and (causal) its
+    // last row sees the tile's first key
+    if (m0 < seq_q && !(causal && k0 > m0 + 63)) {
+      uint8_t* k_st = ks + s * H * kDqKHalf;
+      uint8_t* v_st = vs + s * H * kDqKHalf;
+
+      // S = Q K^T and dP = dO V^T over head_dim in k16 steps
+      float sc[32], dp[32];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int a_byte = (kk / 4) * kDqQHalf + q_off + (kk % 4) * 32;
+        const int b_byte = (kk / 4) * kDqKHalf + (kk % 4) * 32;
+        const uint64_t a = hopper::desc_sw128(qs + a_byte, 16, 1024);
+        const uint64_t b = hopper::desc_sw128(k_st + b_byte, 16, 1024);
+        if (kk == 0)
+          hopper::wgmma_ss_zero(sc, a, b);
+        else
+          hopper::wgmma_ss(sc, a, b);
+      }
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int a_byte = (kk / 4) * kDqQHalf + q_off + (kk % 4) * 32;
+        const int b_byte = (kk / 4) * kDqKHalf + (kk % 4) * 32;
+        const uint64_t a = hopper::desc_sw128(dos + a_byte, 16, 1024);
+        const uint64_t b = hopper::desc_sw128(v_st + b_byte, 16, 1024);
+        if (kk == 0)
+          hopper::wgmma_ss_zero(dp, a, b);
+        else
+          hopper::wgmma_ss(dp, a, b);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+
+      // P and dS in place: row = query, column = key.  The mask only on
+      // the ragged last tile and on tiles that cross the diagonal
+      const bool edge = k0 + kDqTileK > seq_k || (causal && k0 + 63 > m0);
+#pragma unroll
+      for (int i = 0; i < kDqTileK / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * i + 2 * j + e;
+            const int key = k0 + 8 * i + c0 + e;
+            const int row = m0 + r_in + 8 * j;
+            float p = hopper::exp2_ftz(fmaf(sc[idx], scale_log2, -lse2[j]));
+            if (edge && (key >= seq_k || (causal && key > row))) p = 0.f;
+            dp[idx] = p * (dp[idx] - di_r[j]);
+          }
+
+      // bf16(dS) as A fragments (the TPU kernel's ds.astype(k.dtype));
+      // dQ += dS K reduces over the tile's 64 keys: k16 step kk = K rows
+      // 16 kk .. 16 kk + 15
+      uint32_t da[kDqTileK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kDqTileK / 16; ++kk) hopper::pack_a(da[kk], dp, kk);
+      hopper::fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < kDqTileK / 16; ++kk) hopper::fence_regs(da[kk]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDqTileK / 16; ++kk)
+        hopper::wgmma_rs_tb(
+            acc, da[kk],
+            hopper::desc_sw128(k_st + kk * 2048, kDqKHalf, 1024));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+    }
+    hopper::mbar_arrive(&empty[s]);
+    if (issuer && t + kStages < n_tiles) load_kv(t + kStages);
+  }
+
+  // k was streamed unscaled, so dq takes the single scale here
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = m0 + r_in + 8 * j;
+    if (row >= seq_q) continue;
+    __nv_bfloat16* out = dq + ((size_t)bh * seq_q + row) * HD + c0;
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * i) = __floats2bfloat162_rn(
+          acc[4 * i + 2 * j] * scale, acc[4 * i + 2 * j + 1] * scale);
+  }
+}
+
+template <int HD>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* di, void* dq, int bh, int seq_q,
+                            int seq_k, int causal, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  cudaError_t err;
+  if ((err = hopper::make_map(&tm_q, q, bh, seq_q, HD, kDqTileQ)) !=
+          cudaSuccess ||
+      (err = hopper::make_map(&tm_do, dout, bh, seq_q, HD, kDqTileQ)) !=
+          cudaSuccess ||
+      (err = hopper::make_map(&tm_k, k, bh, seq_k, HD, kDqTileK)) !=
+          cudaSuccess ||
+      (err = hopper::make_map(&tm_v, v, bh, seq_k, HD, kDqTileK)) !=
+          cudaSuccess)
+    return err;
+  constexpr size_t smem = dq_wgmma_smem_bytes<HD>();
+  err = cudaFuncSetAttribute(flash_dq_wgmma<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq_q + kDqTileQ - 1) / kDqTileQ, bh);
+  flash_dq_wgmma<HD><<<grid, kDqThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, lse, di, static_cast<__nv_bfloat16*>(dq),
+      seq_q, seq_k, causal, 1.0f / sqrtf((float)HD));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  q and dout [bh, seq_q, head_dim],
-// k and v [bh, seq_k, head_dim], lse and di [bh, seq_q] f32, dq like q,
-// all contiguous.  Returns a cudaError_t (cudaErrorInvalidValue for a
-// dtype or head_dim the kernel does not take).
+// dtype: 0 = float32 (FMA kernels), 1 = bfloat16 (wgmma + TMA kernels).
+// q and dout [bh, seq_q, head_dim], k and v [bh, seq_k, head_dim], lse
+// and di [bh, seq_q] f32, dq like q, all contiguous, bf16 base pointers
+// 16-byte aligned.  Returns a cudaError_t (cudaErrorInvalidValue for a
+// dtype or head_dim the kernel does not take, or a tensor map the
+// driver refuses).
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* di, void* dq,
                  int bh, int seq_q, int seq_k, int head_dim, int dtype,
@@ -726,24 +960,23 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
   const float* d = static_cast<const float*>(di);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64)
-    return launch_dq<float, 64>(q, k, v, dout, l, d, dq, bh, seq_q, seq_k,
-                                causal, s);
+    return launch_dq_fma<64>(q, k, v, dout, l, d, dq, bh, seq_q, seq_k,
+                             causal, s);
   if (dtype == 0 && head_dim == 128)
-    return launch_dq<float, 128>(q, k, v, dout, l, d, dq, bh, seq_q, seq_k,
-                                 causal, s);
+    return launch_dq_fma<128>(q, k, v, dout, l, d, dq, bh, seq_q, seq_k,
+                              causal, s);
   if (dtype == 1 && head_dim == 64)
-    return launch_dq<__nv_bfloat16, 64>(q, k, v, dout, l, d, dq, bh, seq_q,
-                                        seq_k, causal, s);
+    return launch_dq_wgmma<64>(q, k, v, dout, l, d, dq, bh, seq_q, seq_k,
+                               causal, s);
   if (dtype == 1 && head_dim == 128)
-    return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, l, d, dq, bh, seq_q,
-                                         seq_k, causal, s);
+    return launch_dq_wgmma<128>(q, k, v, dout, l, d, dq, bh, seq_q, seq_k,
+                                causal, s);
   return cudaErrorInvalidValue;
 }
 
-// As flash_bwd_dq; dk and dv like k.  f32 runs the FMA kernel.  bf16 runs
-// the wgmma + TMA kernel: base pointers 16-byte aligned, and lse and di
-// padded to whole 64-row tiles, [bh, round_up(seq_q, 64)] f32 with zeros
-// past seq_q and lse multiplied by log2(e) (ops/attention.py makes them).
+// As flash_bwd_dq; dk and dv like k.  bf16: lse and di padded to whole
+// 64-row tiles, [bh, round_up(seq_q, 64)] f32 with zeros past seq_q and
+// lse multiplied by log2(e) (ops/attention.py makes them).
 int flash_bwd_dkv(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* di, void* dk,
                   void* dv, int bh, int seq_q, int seq_k, int head_dim,
@@ -752,11 +985,11 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
   const float* d = static_cast<const float*>(di);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64)
-    return launch_dkv<float, 64>(q, k, v, dout, l, d, dk, dv, bh, seq_q,
-                                 seq_k, causal, s);
+    return launch_dkv_fma<64>(q, k, v, dout, l, d, dk, dv, bh, seq_q, seq_k,
+                              causal, s);
   if (dtype == 0 && head_dim == 128)
-    return launch_dkv<float, 128>(q, k, v, dout, l, d, dk, dv, bh, seq_q,
-                                  seq_k, causal, s);
+    return launch_dkv_fma<128>(q, k, v, dout, l, d, dk, dv, bh, seq_q,
+                               seq_k, causal, s);
   if (dtype == 1 && head_dim == 64)
     return launch_dkv_wgmma<64>(q, k, v, dout, l, d, dk, dv, bh, seq_q, seq_k,
                                 causal, s);

@@ -14,8 +14,7 @@ build.  The hash also covers every ``csrc/*.cuh`` (the Hopper helpers in
 attention kernels build their TMA tensor maps with the driver's
 ``cuTensorMapEncodeTiled``, found at run time through the runtime's
 driver entry point: nothing links against ``libcuda``, but the driver
-must be there.  Triton kernels compile at their first launch; their
-cache is pointed into the same build directory.
+must be there.
 """
 
 from __future__ import annotations
@@ -133,12 +132,3 @@ def cuda_library(name: str) -> ctypes.CDLL:
             lib = _libraries.setdefault(name, ctypes.CDLL(path))
     return lib
 
-
-def import_triton():
-    """Import triton with its kernel cache inside the build directory."""
-    os.environ.setdefault(
-        "TRITON_CACHE_DIR", os.path.join(REPO_ROOT, "build", "triton")
-    )
-    import triton
-
-    return triton

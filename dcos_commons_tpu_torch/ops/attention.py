@@ -1,9 +1,9 @@
 """Flash attention, forward and backward: kernels K2 (``csrc/flash_fwd.cu``),
 K3 and K4 (``csrc/flash_bwd.cu``), all CUDA C++, and their plain
-PyTorch versions.  In bf16, K2 and K4 run on the tensor cores (wgmma,
-with tiles loaded by TMA; ``csrc/hopper.cuh``) and K3 in f32 FMA; in
-f32 all three run f32 FMA on the CUDA cores, exact for the f32 parity
-checks.  A bf16 launch that fails raises: nothing falls back.
+PyTorch versions.  In bf16 all three run on the tensor cores (wgmma,
+with tiles loaded by TMA; ``csrc/hopper.cuh``); in f32 they run f32 FMA
+on the CUDA cores, exact for the f32 parity checks.  A launch that
+fails raises: nothing falls back.
 
 K2 replaces the TPU kernel ``dcos_commons_tpu/ops/attention.py::_fwd_kernel``
 (launched by ``_pallas_attention``); K3 and K4 replace ``_dq_kernel``
@@ -167,7 +167,7 @@ def _check_operands(name, q, k, v, *extra):
 
 
 def _check_tma_alignment(name, *tensors):
-    """The bf16 kernels (K2, K4) read their operands through TMA tensor
+    """The bf16 kernels (K2-K4) read their operands through TMA tensor
     maps, which need a 16-byte aligned base pointer."""
     if tensors[0].dtype == torch.bfloat16 and any(
             t.data_ptr() % 16 for t in tensors):
@@ -236,10 +236,14 @@ def flash_dq_kernel(
     lse: torch.Tensor, di: torch.Tensor, causal: bool,
 ) -> torch.Tensor:
     """Launch K3: dq like q from contiguous ``q``/``do [bh, seq_q,
-    hd]``, ``k``/``v [bh, seq_k, hd]`` and f32 ``lse``/``di [bh,
-    seq_q]``.  Counts its launches in ``flash_dq_kernel.launches``."""
+    hd]``, ``k``/``v [bh, seq_k, hd]`` (f32 or bf16, bf16 16-byte
+    aligned) and f32 ``lse``/``di [bh, seq_q]``.  The bf16 kernel reads
+    each thread's lse and di rows once, so they go as they are (K4's
+    bf16 kernel needs them padded; see ``flash_dkv_kernel``).  Counts
+    its launches in ``flash_dq_kernel.launches``."""
     bh, seq_q, seq_k, hd = _check_operands("flash_dq_kernel", q, k, v, do)
     _check_rows("flash_dq_kernel", q, lse, di)
+    _check_tma_alignment("flash_dq_kernel", q, k, v, do)
     lib = _library("flash_bwd", _BWD_ENTRY_POINTS)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):

@@ -1,33 +1,30 @@
-"""RMSNorm: kernel K1 (Triton) and its plain PyTorch version.
+"""RMSNorm: kernel K1 (CUDA C++, ``csrc/rmsnorm.cu``) and its plain
+PyTorch version.
 
 K1 replaces the TPU kernel ``dcos_commons_tpu/ops/rmsnorm.py::_kernel``
 (launched by ``_pallas_rms_norm``): ``y = x * rsqrt(mean(x^2) + eps) * w``
-over the last axis, statistics in f32, output in x's dtype.
+over the last axis, statistics in f32, output in x's dtype.  The source
+note in ``csrc/rmsnorm.cu`` says what bounds it on the H100 and what its
+design does about that.
 
-What bounds it on the H100: memory.  Each element is read once and
-written once (2 bytes each way in bf16) for about four flops, two
-orders of magnitude under the card's flop/byte ridge, so the least time
-is the bytes over 3.35 TB/s.  The design moves each byte once: one
-program per row loads the whole row (``BLOCK_D = next_pow2(d)``) with
-one masked, coalesced load into registers, reduces the sum of squares
-in f32 there, and stores the scaled row once.  Any row count works (the
-TPU launcher needed rows % 256 == 0 and fell back otherwise); the mask
-covers any width.
+At the decode and train-worker shapes the device work is a few
+microseconds, so the wrapper is kept lean: the C entry point's
+signature is declared once, the checks read plain attributes (the
+device as an index), the launch is one ctypes call on the raw handle of
+PyTorch's current stream, and no device context is entered when x's
+device is already the current one.
 
 The backward pass recomputes through autograd on the plain version, as
 the JAX package's custom VJP does (no backward kernel exists there).
-The module does not import triton; the kernel is built at its first
-launch, so the module imports on a host without it.
 """
+
+import ctypes
 
 import torch
 
 EPS = 1e-6
-
-# triton.language, bound at the kernel's first build: the jitted body
-# below resolves ``tl`` in this module's globals when it compiles
-tl = None
-_kernel_fn = None
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_lib = None
 
 
 def _reference(x: torch.Tensor, w: torch.Tensor, eps: float = EPS
@@ -38,63 +35,61 @@ def _reference(x: torch.Tensor, w: torch.Tensor, eps: float = EPS
     return (x32 * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
-def _build_kernel():
-    global tl, _kernel_fn
-    if _kernel_fn is not None:
-        return _kernel_fn
-    from dcos_commons_tpu_torch.device import import_triton
+def _library():
+    """The built ``csrc/rmsnorm.cu`` with its C signatures declared."""
+    global _lib
+    if _lib is None:
+        from dcos_commons_tpu_torch.device import cuda_library
 
-    triton = import_triton()
-    import triton.language as language
-
-    tl = language
-
-    @triton.jit
-    def _rms_norm_fwd(x_ptr, w_ptr, y_ptr, stride_x, stride_y, d, eps,
-                      BLOCK_D: tl.constexpr):
-        row = tl.program_id(0)
-        cols = tl.arange(0, BLOCK_D)
-        mask = cols < d
-        x = tl.load(x_ptr + row * stride_x + cols, mask=mask,
-                    other=0.0).to(tl.float32)
-        var = tl.sum(x * x, axis=0) / d
-        w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-        y = x / tl.sqrt(var + eps) * w
-        tl.store(y_ptr + row * stride_y + cols,
-                 y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    _kernel_fn = _rms_norm_fwd
-    return _kernel_fn
+        lib = cuda_library("rmsnorm")
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        # x, w, y, rows, d, dtype, eps, stream
+        lib.rmsnorm_fwd.argtypes = [vp, vp, vp, i, i, i, ctypes.c_float, vp]
+        lib.rmsnorm_fwd.restype = i
+        lib.rmsnorm_error_string.argtypes = [i]
+        lib.rmsnorm_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
 
 
 def rms_norm_kernel(x: torch.Tensor, w: torch.Tensor, eps: float = EPS
                     ) -> torch.Tensor:
     """Launch K1 on ``x [rows, d]`` (CUDA, contiguous, f32/bf16/f16)
-    and ``w [d]``; returns y in x's dtype.  Counts its launches in
-    ``rms_norm_kernel.launches``."""
-    if not (x.is_cuda and w.is_cuda and x.device == w.device):
+    and ``w [d]`` of x's dtype; returns y in x's dtype.  Counts its
+    launches in ``rms_norm_kernel.launches``."""
+    dev = x.get_device()                   # -1 for a CPU tensor
+    if dev < 0 or w.get_device() != dev:
         raise ValueError("rms_norm_kernel needs x and w on one CUDA device")
     if x.dim() != 2 or w.dim() != 1 or w.shape[0] != x.shape[1]:
         raise ValueError(
             f"rms_norm_kernel takes x [rows, d] and w [d], got "
             f"{tuple(x.shape)} and {tuple(w.shape)}"
         )
-    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
-        raise ValueError(f"rms_norm_kernel: unsupported dtype {x.dtype}")
+    code = _DTYPE_CODE.get(x.dtype)
+    if code is None or w.dtype != x.dtype:
+        raise ValueError(
+            f"rms_norm_kernel takes f32, bf16 or f16 x and w of one dtype, "
+            f"got {x.dtype} and {w.dtype}"
+        )
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("rms_norm_kernel needs contiguous x and w")
     rows, d = x.shape
     y = torch.empty_like(x)
-    if rows == 0:
+    if rows == 0 or d == 0:
         return y
-    block_d = max(16, 1 << (d - 1).bit_length())
-    kernel = _build_kernel()
-    # triton raises on a refused launch (its launcher checks the
-    # CUDA driver's return code), so no launch goes unnoticed
-    kernel[(rows,)](
-        x, w, y, x.stride(0), y.stride(0), d, eps,
-        BLOCK_D=block_d, num_warps=min(16, max(1, block_d // 256)),
-    )
+    lib = _library()
+    args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d, code, eps)
+    if dev == torch.cuda.current_device():
+        # the raw handle of PyTorch's current stream on x's device, read
+        # without building a torch.cuda.Stream object for each call
+        err = lib.rmsnorm_fwd(*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = lib.rmsnorm_fwd(*args,
+                                  torch._C._cuda_getCurrentRawStream(dev))
+    if err != 0:
+        message = lib.rmsnorm_error_string(err).decode()
+        raise RuntimeError(f"rmsnorm_fwd launch failed: {message}")
     rms_norm_kernel.launches += 1
     return y
 
@@ -130,11 +125,11 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = EPS
     A CPU tensor takes the plain version; a CUDA tensor takes K1."""
     shape = x.shape
     flat = x.reshape(-1, shape[-1])
-    if flat.device.type == "cpu":
+    if not flat.is_cuda:
         return _reference(flat, w, eps).reshape(shape)
-    flat = flat.contiguous()
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        out = _RMSNormFn.apply(flat, w.contiguous(), eps)
+    flat, w = flat.contiguous(), w.contiguous()
+    if (x.requires_grad or w.requires_grad) and torch.is_grad_enabled():
+        out = _RMSNormFn.apply(flat, w, eps)
     else:
-        out = rms_norm_kernel(flat, w.contiguous(), eps)
-    return out.reshape(shape)
+        out = rms_norm_kernel(flat, w, eps)
+    return out.view(shape)

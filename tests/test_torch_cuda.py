@@ -1,6 +1,7 @@
-"""The port's hand-written kernels on the card: K1 (Triton RMSNorm), K2
+"""The port's hand-written kernels on the card: K1 (CUDA RMSNorm), K2
 (CUDA flash-attention forward), K3 and K4 (CUDA flash-attention dq and
-dk/dv) against their plain PyTorch versions -- the bf16 K2 and K4
+dk/dv) against their plain PyTorch versions -- K1 also at widths and
+alignments that take its scalar loop and in f16, the bf16 K2-K4
 (wgmma + TMA) also at the edges of their tiles, with seq_q != seq_k,
 across heads and run to run -- the autograd Function's
 gradients against the plain ones, their launch counters, and the checks
@@ -25,8 +26,11 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-# (atol, rtol) as chip_smoke.py states them
-_K1_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1.6e-2, 1.6e-2)}
+# (atol, rtol) as chip_smoke.py states them; f16, which only these tests
+# run: the output is rounded once to f16 on both sides, so a tie may
+# land one ulp (2^-11 relative) apart, as bf16's may land 2^-8 apart
+_K1_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1.6e-2, 1.6e-2),
+           torch.float16: (2e-3, 2e-3)}
 _TOL = {torch.float32: (2e-5, 2e-4), torch.bfloat16: (1.6e-2, 1.6e-2)}
 
 
@@ -41,6 +45,34 @@ def test_rms_norm_kernel_matches_plain(gen, dtype, rows, d):
     torch.testing.assert_close(got, rmsnorm._reference(x, w),
                                atol=_K1_TOL[dtype][0],
                                rtol=_K1_TOL[dtype][1])
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows", [1, 4096])
+@pytest.mark.parametrize("d", [2048, 96, 2047, 8192])
+def test_k1_at_widths_rows_and_alignments(gen, d, rows, dtype, offset):
+    """K1's vector path (d a multiple of the 16-byte vector, every
+    pointer aligned: 2048 and 96) and its scalar loop (2047; 8192, wider
+    than the vectors a lane holds in f32, bf16 and f16; and x starting
+    one element off 16-byte alignment)."""
+    flat = torch.randn(rows * d + offset, device="cuda", generator=gen)
+    x = flat.to(dtype)[offset:].view(rows, d)
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
+    w = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).to(dtype)
+    before = rmsnorm.rms_norm_kernel.launches
+    got = rmsnorm.rms_norm_kernel(x, w)
+    assert rmsnorm.rms_norm_kernel.launches == before + 1
+    torch.testing.assert_close(got, rmsnorm._reference(x, w),
+                               atol=_K1_TOL[dtype][0],
+                               rtol=_K1_TOL[dtype][1])
+
+
+def test_k1_refuses_mixed_dtypes(gen):
+    x = torch.randn(4, 64, device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="one dtype"):
+        rmsnorm.rms_norm_kernel(x.to(torch.bfloat16), x[0])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -137,16 +169,17 @@ def test_autograd_gradients_match_plain(gen, dtype, causal):
         assert _bwd_error(g, w, dtype) <= _GRAD_TOL[dtype]
 
 
-# The bf16 K2 and K4 (wgmma + TMA) at the edges of their tiles: 128-row
-# Q tiles and K/V ring stages in K2, 128-row K tiles and 64-row Q ring
-# stages in K4, 16-wide wgmma steps; lengths around each, where a
-# ragged tile or a permuted register fragment would show
+# The bf16 K2-K4 (wgmma + TMA) at the edges of their tiles: 128-row Q
+# tiles and K/V ring stages in K2, 128-row K tiles and 64-row Q ring
+# stages in K4, 128-row Q tiles and 64-row K/V ring stages in K3, 16-wide
+# wgmma steps; lengths around each, where a ragged tile or a permuted
+# register fragment would show
 _TILE_LENGTHS = [1, 15, 63, 64, 65, 127, 128, 129, 200]
 
 
-def _k4_case(gen, bh, sq, sk, hd, causal):
-    """Operands of K4 with lse, di and o from the plain forward, and the
-    plain backward's (dk, dv)."""
+def _bwd_case(gen, bh, sq, sk, hd, causal):
+    """Operands of K3 and K4 with lse, di and o from the plain forward,
+    and the plain backward's (dq, dk, dv)."""
     q, do = (torch.randn(bh, sq, hd, device="cuda", generator=gen)
              .to(torch.bfloat16) for _ in range(2))
     k, v = (torch.randn(bh, sk, hd, device="cuda", generator=gen)
@@ -154,21 +187,37 @@ def _k4_case(gen, bh, sq, sk, hd, causal):
     o = attention.reference_attention(q[None], k[None], v[None], causal)[0]
     lse = attention.reference_lse(q[None], k[None], causal)
     di = (do.float() * o.float()).sum(-1)
-    _, dk, dv = attention.reference_attention_bwd(
+    want = attention.reference_attention_bwd(
         q[None], k[None], v[None], o[None], lse, do[None], causal)
-    return (q, k, v, do, lse, di), (dk[0], dv[0])
+    return (q, k, v, do, lse, di), tuple(w[0] for w in want)
+
+
+def _floored_error(got, want, floor):
+    """bf16 relative Frobenius error with the denominator floored."""
+    want = want.float()
+    return ((got.float() - want).norm()
+            / torch.maximum(want.norm(), floor)).item()
 
 
 def _k4_errors(got, want):
-    """bf16 relative Frobenius errors of (dk, dv).  dk's denominator has
-    a floor of 1% of ||dv||: where every query sees a single key (length
-    1), ds = p (dp - di) cancels to rounding noise on both sides and dk
-    is that noise, not a quantity to hold to a relative limit."""
+    """bf16 relative Frobenius errors of (dk, dv) against the plain
+    (dq, dk, dv).  dk's denominator has a floor of 1% of ||dv||: where
+    every query sees a single key (length 1), ds = p (dp - di) cancels
+    to rounding noise on both sides and dk is that noise, not a
+    quantity to hold to a relative limit."""
     dk, dv = got
-    dk_w, dv_w = (w.float() for w in want)
-    floor = 1e-2 * dv_w.norm()
-    return ((dk.float() - dk_w).norm() / torch.maximum(dk_w.norm(), floor)
-            ).item(), ((dv.float() - dv_w).norm() / dv_w.norm()).item()
+    _, dk_w, dv_w = want
+    floor = 1e-2 * dv_w.float().norm()
+    return (_floored_error(dk, dk_w, floor),
+            _floored_error(dv, dv_w, torch.zeros_like(floor)))
+
+
+def _k3_error(dq, want):
+    """bf16 relative Frobenius error of dq against the plain (dq, dk,
+    dv), its denominator floored at 1% of ||dv|| as dk's is: dq = scale
+    ds k cancels to the same noise where a query sees a single key."""
+    dq_w, _, dv_w = want
+    return _floored_error(dq, dq_w, 1e-2 * dv_w.float().norm())
 
 
 @pytest.mark.parametrize("hd", [64, 128])
@@ -190,11 +239,25 @@ def test_k2_bf16_matches_plain_at_tile_edges(gen, s, causal, hd):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s", _TILE_LENGTHS)
 def test_k4_bf16_matches_plain_at_tile_edges(gen, s, causal, hd):
-    args, want = _k4_case(gen, 3, s, s, hd, causal)
+    args, want = _bwd_case(gen, 3, s, s, hd, causal)
     got = attention.flash_dkv_kernel(*args, causal)
     torch.cuda.synchronize()
     for name, err in zip(("dk", "dv"), _k4_errors(got, want)):
         assert err <= _BWD_TOL[torch.bfloat16], (name, err)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", _TILE_LENGTHS)
+def test_k3_bf16_matches_plain_at_tile_edges(gen, s, causal, hd):
+    args, want = _bwd_case(gen, 3, s, s, hd, causal)
+    before = attention.flash_dq_kernel.launches
+    dq = attention.flash_dq_kernel(*args, causal)
+    assert attention.flash_dq_kernel.launches == before + 1
+    torch.cuda.synchronize()
+    assert dq.dtype == torch.bfloat16 and dq.shape == want[0].shape
+    err = _k3_error(dq, want)
+    assert err <= _BWD_TOL[torch.bfloat16], err
 
 
 @pytest.mark.parametrize("hd", [64, 128])
@@ -217,10 +280,12 @@ def test_bf16_kernels_match_plain_when_seq_q_differs(gen, sq, sk, causal,
     torch.testing.assert_close(
         lse, attention.reference_lse(q[None], k[None], causal), atol=1e-4,
         rtol=1e-5)
-    args, want = _k4_case(gen, 2, sq, sk, hd, causal)
+    args, want = _bwd_case(gen, 2, sq, sk, hd, causal)
     got = attention.flash_dkv_kernel(*args, causal)
     for name, err in zip(("dk", "dv"), _k4_errors(got, want)):
         assert err <= _BWD_TOL[torch.bfloat16], (name, err)
+    err = _k3_error(attention.flash_dq_kernel(*args, causal), want)
+    assert err <= _BWD_TOL[torch.bfloat16], ("dq", err)
 
 
 def _bf16_heads(gen, bh, s, hd, big):
@@ -242,13 +307,16 @@ def test_bf16_kernels_keep_heads_apart(gen, hd):
     o, lse = attention.flash_fwd_kernel(q, k, v, True, True)
     di = (do.float() * o.float()).sum(-1)
     dk, dv = attention.flash_dkv_kernel(q, k, v, do, lse, di, True)
+    dq = attention.flash_dq_kernel(q, k, v, do, lse, di, True)
     for h in range(3):
         one = [t[h:h + 1].contiguous() for t in (q, k, v, do)]
+        rows = (lse[h:h + 1].contiguous(), di[h:h + 1].contiguous())
         o1, lse1 = attention.flash_fwd_kernel(*one[:3], True, True)
-        dk1, dv1 = attention.flash_dkv_kernel(
-            *one, lse[h:h + 1].contiguous(), di[h:h + 1].contiguous(), True)
+        dk1, dv1 = attention.flash_dkv_kernel(*one, *rows, True)
+        dq1 = attention.flash_dq_kernel(*one, *rows, True)
         assert torch.equal(o1, o[h:h + 1]) and torch.equal(lse1, lse[h:h + 1])
         assert torch.equal(dk1, dk[h:h + 1]) and torch.equal(dv1, dv[h:h + 1])
+        assert torch.equal(dq1, dq[h:h + 1])
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -263,6 +331,8 @@ def test_bf16_kernels_are_deterministic(gen, causal):
     first = attention.flash_dkv_kernel(q, k, v, do, lse, di, causal)
     second = attention.flash_dkv_kernel(q, k, v, do, lse, di, causal)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert torch.equal(attention.flash_dq_kernel(q, k, v, do, lse, di, causal),
+                       attention.flash_dq_kernel(q, k, v, do, lse, di, causal))
 
 
 def test_bf16_wrappers_refuse_unaligned_pointers(gen):
@@ -277,6 +347,8 @@ def test_bf16_wrappers_refuse_unaligned_pointers(gen):
     rows = torch.zeros(2, 64, device="cuda")
     with pytest.raises(ValueError, match="16-byte"):
         attention.flash_dkv_kernel(x, x, x, x, rows, rows, True)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention.flash_dq_kernel(x, x, x, x, rows, rows, True)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):

@@ -1,7 +1,8 @@
 """The port stands alone: no module of dcos_commons_tpu_torch, and not
 chip_smoke.py, imports jax or anything of the JAX package
-(dcos_commons_tpu), and its entry points run on the card unless the
-caller asks for the CPU."""
+(dcos_commons_tpu), nor triton (every kernel is CUDA C++ built with
+nvcc), and its entry points run on the card unless the caller asks for
+the CPU."""
 
 import ast
 import os
@@ -74,9 +75,8 @@ def test_every_port_module_imports_without_jax():
     assert f"imported {len(mods)}" in out.stdout
 
 
-@pytest.mark.parametrize("path", _port_sources(),
-                         ids=lambda p: os.path.relpath(p, REPO))
-def test_no_source_imports_jax_or_the_jax_package(path):
+def _imports(path):
+    """(line, top-level module) of every import statement in ``path``."""
     with open(path) as f:
         tree = ast.parse(f.read(), path)
     for node in ast.walk(tree):
@@ -87,10 +87,27 @@ def test_no_source_imports_jax_or_the_jax_package(path):
         else:
             continue
         for name in names:
-            top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "dcos_commons_tpu"), (
-                f"{os.path.relpath(path, REPO)}:{node.lineno} imports {name}"
-            )
+            yield node.lineno, name.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    for line, top in _imports(path):
+        assert top not in ("jax", "jaxlib", "dcos_commons_tpu"), (
+            f"{os.path.relpath(path, REPO)}:{line} imports {top}"
+        )
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_source_imports_triton(path):
+    """K1-K4 are CUDA C++: the port needs no triton, on the card or
+    here."""
+    for line, top in _imports(path):
+        assert top != "triton", (
+            f"{os.path.relpath(path, REPO)}:{line} imports triton"
+        )
 
 
 def test_entry_points_default_to_the_card():
@@ -125,7 +142,8 @@ def test_entry_points_default_to_the_card():
 def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
     """A kernel library is named by a hash of its .cu and of every
     csrc/*.cuh, so an edit to a shared header (hopper.cuh) gives every
-    library a new path and never loads a stale build.  Needs no nvcc."""
+    library a new path and never loads a stale build, also one that
+    does not include it (rmsnorm.cu).  Needs no nvcc."""
     import shutil
 
     from dcos_commons_tpu_torch import device
@@ -134,7 +152,7 @@ def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
         if name.endswith((".cu", ".cuh")):
             shutil.copy(os.path.join(device.CSRC_DIR, name), tmp_path)
     monkeypatch.setattr(device, "CSRC_DIR", str(tmp_path))
-    names = ("flash_fwd", "flash_bwd")
+    names = ("flash_fwd", "flash_bwd", "rmsnorm")
     before = {n: device._library_path(n) for n in names}
     assert before == {n: device._library_path(n) for n in names}
     header = tmp_path / "hopper.cuh"

@@ -25,11 +25,17 @@ def _normal(seed, *shape):
     )
 
 
-@pytest.mark.parametrize("rows", [512, 100])
-def test_rms_norm_plain_matches_pallas(rows):
+@pytest.mark.parametrize("rows,d", [
+    pytest.param(512, 128, id="512"), pytest.param(100, 128, id="100"),
+    *(pytest.param(rows, d, id=f"{rows}-d{d}")
+      for rows in (512, 100) for d in (100, 2047, 2050)),
+])
+def test_rms_norm_plain_matches_pallas(rows, d):
     """512 rows run the Pallas kernel (interpreted); 100 rows do not
-    tile 256 and take the JAX package's own plain path."""
-    x, w = _normal(0, rows, 128), _normal(1, 128)
+    tile 256 and take the JAX package's own plain path.  Widths that are
+    not multiples of 8 (K1's 16-byte bf16 vector) are the ones K1 runs
+    through its scalar loop."""
+    x, w = _normal(0, rows, d), _normal(1, d)
     want = np.asarray(rms_norm(x, w, interpret=True, block_rows=256))
     got = t_rmsnorm.rms_norm(torch.from_numpy(x), torch.from_numpy(w))
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
