@@ -38,11 +38,23 @@ CUDA card).  Phases, each fatal on failure:
    device memory; one more step runs under ``torch.profiler``, which
    prints the ten device operations that took the most time in it, the
    port's kernels, the device time by kind of work and the device's
-   busy share of the step.  Every kernel is then held
-   against its plain version
-   at each shape these train runs launched it at (K1 [24576, 2048] and
-   [4096, 2048] bf16, K2-K4 [192 or 32, 2048, 2048, 128] bf16 causal),
-   within ``TOL``.
+   busy share of the step.
+9. The MoE flagship (bench.py ``moe_flagship_config``: the flagship's
+   width with 4 experts of d_ff 2048, top-2) served on both pool paths
+   as in phases 3 and 4, with the same kernel rules.
+10. MoE parity in f32: phase 6's train step on a 2-layer MoE model
+   (capacity factor 1.25), its routing (every top-k choice) compared
+   card against CPU first, with the smallest top-k probability margin
+   of the CPU run; then phase 5's cross-path check on the MoE model.
+11. The MoE train worker (full remat, no stored layer) from scratch and
+   resumed from its checkpoint, then ``make_train_step`` at bench.py
+   bench_moe's batch 8 timed and profiled as in phase 7, the profile's
+   device time split first into the MoE parts (routing, the dispatch
+   and combine einsums, the expert FFN: ``time_by_part``).
+8. Run last: every kernel against its plain version at each shape the
+   train runs of phases 7 and 11 launched it at (K1 [24576, 16384 or
+   4096, 2048] bf16, K2-K4 [192, 128 or 32, 2048, 2048, 128] bf16
+   causal), within ``TOL``.
 
 Each kernel's log line gives its error, its time, the plain version's,
 the library call's and the bound, the rate it reached (TFLOP/s) and its
@@ -51,13 +63,15 @@ that outlives it (a kernel that hangs the card) is named and ends the
 run with exit code 3.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; each
-entry's ``design`` says how it computes (K1: a warp a row with 16-byte
-vector loads, launched through ctypes; K2-K4: wgmma with TMA-fed tiles
-in bf16, f32 FMA in f32).  The last line is ``{"ok": true, "device":
-{...}}``.  Without CUDA, or without the port beside it, the script
-fails before printing either.
+entry's ``launches`` sums the main-path runs, dense and MoE (phases 3,
+4, 7, 9 and 11), and its ``design`` says how it computes (K1: a warp a
+row with 16-byte vector loads, launched through ctypes; K2-K4: wgmma
+with TMA-fed tiles in bf16, f32 FMA in f32).  The last line is ``{"ok":
+true, "device": {...}}``.  Without CUDA, or without the port beside it,
+the script fails before printing either.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -585,15 +599,15 @@ def report_serving(name, replies, launches, stats, wall):
     log(f"{name} /stats: {json.dumps(stats, sort_keys=True)}")
 
 
-def cross_path_check():
+def cross_path_check(env=FLAGSHIP_ENV, label="f32"):
     """Greedy tokens of the paged and slot paths on a 2-layer f32 model
-    at the flagship width must be identical."""
+    at the width of ``env`` must be identical."""
     from dcos_commons_tpu_torch.models import config_from_env, init_params
     from dcos_commons_tpu_torch.serve.engine import PagedEngine, SlotEngine
     from dcos_commons_tpu_torch.serve.pool import PagedPoolModel, PoolModel
 
-    env = dict(FLAGSHIP_ENV, N_LAYERS="2")
-    config = config_from_env(env, dtype=torch.float32, remat=False)
+    config = config_from_env(dict(env, N_LAYERS="2"), dtype=torch.float32,
+                             remat=False)
     params = init_params(config, seed=1, device="cuda")
     prompts = [r["tokens"][0][:300] for r in requests_for(config.vocab, 1)]
     max_len, prompt_len, n_new = 384, 320, 32
@@ -614,8 +628,9 @@ def cross_path_check():
             engine.stop()
         del pool
     if outs[0] != outs[1]:
-        raise AssertionError("paged and slot greedy outputs differ in f32")
-    log(f"cross-path f32: {len(prompts)} prompts x {n_new} tokens identical")
+        raise AssertionError(f"paged and slot greedy outputs differ ({label})")
+    log(f"cross-path {label}: {len(prompts)} prompts x {n_new} tokens "
+        f"identical")
 
 
 # -- phases 6-7: the train path ------------------------------------------
@@ -630,6 +645,14 @@ TRAIN_ENV = {
 NO_REMAT_LAYERS = 1
 TRAIN_BATCH = 12          # bench.py bench_transformer's batch
 LR = 3e-4
+# bench.py moe_flagship_config: the flagship's width with 4 experts of
+# d_ff 2048 (top-2), capacity factor 1.25, full remat with no stored
+# layer; bench_moe trains it at batch 8.  The workers take N_EXPERTS and
+# D_FF from the env and keep config_from_env's capacity factor (1.5), as
+# the JAX workers do
+MOE_ENV = {"N_EXPERTS": "4", "D_FF": "2048"}
+MOE_CAPACITY = 1.25
+MOE_BATCH = 8
 
 
 def launches_per_step(n_layers, no_remat_layers):
@@ -644,10 +667,63 @@ def launches_per_step(n_layers, no_remat_layers):
             "K2": n_layers + recomputed, "K3": n_layers, "K4": n_layers}
 
 
-def train_step_parity():
-    """Phase 6: one make_train_step of a 2-layer f32 model at the
-    flagship width, batch 2, seq 256, on the card and on the CPU from
-    the same weights and batch.  TF32 stays off
+class RoutingLog:
+    """While installed, records each MoE routing call's top-k choices and
+    router probabilities (``models/moe.py`` ``_route``) on the host."""
+
+    def __init__(self):
+        from dcos_commons_tpu_torch.models import moe
+
+        self.moe, self.inner, self.calls = moe, moe._route, []
+
+    def __enter__(self):
+        self.moe._route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.inner
+
+    def __call__(self, config, params, x):
+        out = self.inner(config, params, x)
+        self.calls.append((out[1].detach().cpu(), out[2].detach().cpu()))
+        return out
+
+
+def top_k_margins(probs, k):
+    """Per token, the smallest gap between neighbouring probabilities
+    among the first k + 1: how near the token's routing is to a tie."""
+    top = probs.topk(min(k + 1, probs.shape[-1]), dim=-1).values
+    return (top[..., :-1] - top[..., 1:]).min(-1).values
+
+
+def compare_routing(card, cpu, top_k):
+    """The card's routing calls against the CPU's, call by call.  A token
+    routed differently is a fault unless its CPU margin is under 1e-6 (a
+    tie: f32 sums in another order may break it either way); such ties
+    are counted in the log line, beside the smallest CPU margin."""
+    if len(card) != len(cpu):
+        raise AssertionError(f"{len(card)} routing calls on the card, "
+                             f"{len(cpu)} on the CPU")
+    smallest, ties = float("inf"), 0
+    for (idx_g, _), (idx_c, probs_c) in zip(card, cpu):
+        margins = top_k_margins(probs_c, top_k)
+        smallest = min(smallest, margins.min().item())
+        differ = (idx_g != idx_c).any(-1)
+        if differ.any():
+            if (margins[differ] >= 1e-6).any():
+                raise AssertionError(
+                    f"routing differs at {int(differ.sum())} tokens, CPU "
+                    f"margins {margins[differ].tolist()[:8]}")
+            ties += int(differ.sum())
+    log(f"  routing: {len(card)} calls, top-{top_k} choices equal card vs "
+        f"CPU but {ties} tokens at ties; smallest CPU top-k margin "
+        f"{smallest:.3e}")
+
+
+def train_step_parity(env, label, **config_fields):
+    """Phases 6 and 10: one make_train_step of a 2-layer f32 model, batch
+    2, seq 256, on the card and on the CPU from the same weights and
+    batch.  TF32 stays off
     (``torch.backends.cuda.matmul.allow_tf32`` is False), so both sides
     compute in f32.  Tolerances: the loss within 1e-5 relative and each
     gradient leaf within 1e-4 relative Frobenius error (f32 sums in
@@ -656,20 +732,21 @@ def train_step_parity():
     step moves a param by lr * g / (|g| + eps), whose slope lr * eps /
     (|g| + eps)^2 turns the gradients' rounding differences (about 1e-8
     absolute here) into step differences of up to 2 lr where |g| is
-    near eps = 1e-8; those params are held to that 2 lr bound only."""
+    near eps = 1e-8; those params are held to that 2 lr bound only.  A
+    MoE model's routing (top-k choices of every routing call, the
+    remat's recomputes included) is compared first."""
     from dcos_commons_tpu_torch.models.transformer import (
         adamw, config_from_env, init_params, loss_fn, make_train_step,
     )
     from dcos_commons_tpu_torch.utils.tree import tree_leaves, tree_map
 
     if torch.backends.cuda.matmul.allow_tf32:
-        raise AssertionError("phase 6 needs TF32 off")
-    env = dict(TRAIN_ENV, N_LAYERS="2", SEQ_LEN="256")
-    config = config_from_env(env, dtype=torch.float32,
-                             no_remat_layers=NO_REMAT_LAYERS)
+        raise AssertionError("train-step parity needs TF32 off")
+    config = config_from_env(dict(env, N_LAYERS="2", SEQ_LEN="256"),
+                             dtype=torch.float32, **config_fields)
     cpu_params = init_params(config, seed=3, device="cpu")
     toks = np.random.default_rng(3).integers(0, config.vocab, (2, 257))
-    out = {}
+    out, routes = {}, {}
     for dev in ("cuda", "cpu"):
         params = (cpu_params if dev == "cpu"
                   else tree_map(lambda t: t.to(dev), cpu_params))
@@ -677,12 +754,16 @@ def train_step_parity():
         targets = torch.from_numpy(toks[:, 1:]).to(dev)
         optimizer = adamw(params, LR)
         leaves = tree_leaves(params)
-        loss = loss_fn(config, params, tokens, targets)
-        grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
-        step_loss = make_train_step(config, optimizer)(params, tokens,
-                                                       targets)
+        with RoutingLog() as routing:
+            loss = loss_fn(config, params, tokens, targets)
+            grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+            step_loss = make_train_step(config, optimizer)(params, tokens,
+                                                           targets)
+        routes[dev] = routing.calls
         out[dev] = (loss.item(), grads, step_loss.item(),
                     [p.detach().cpu() for p in leaves])
+    if config.n_experts > 0:
+        compare_routing(routes["cuda"], routes["cpu"], config.moe_top_k)
     (loss_g, grads_g, step_g, params_g) = out["cuda"]
     (loss_c, grads_c, step_c, params_c) = out["cpu"]
     if not (np.isfinite(loss_g) and abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
@@ -706,14 +787,14 @@ def train_step_parity():
     if far or max_diff > 2 * LR * (1 + 1e-4) + 1e-6:
         raise AssertionError(f"params after the step: {far} with |g| >= "
                              f"1e-6 apart, max {max_diff:.3e}")
-    log(f"train-step parity (2 layers, f32, TF32 off): loss card {loss_g:.6f}"
-        f" cpu {loss_c:.6f}; grad rel err {grad_err:.3e}; params after "
-        f"AdamW: max |diff| {max_tight:.3e} where |g| >= 1e-6, "
+    log(f"train-step parity ({label}, 2 layers, f32, TF32 off): loss card "
+        f"{loss_g:.6f} cpu {loss_c:.6f}; grad rel err {grad_err:.3e}; "
+        f"params after AdamW: max |diff| {max_tight:.3e} where |g| >= 1e-6, "
         f"{max_diff:.3e} over all; {near_eps}/{total} params with |g| < "
         f"1e-6")
 
 
-def run_train_worker(env, logs, start, steps):
+def run_train_worker(env, logs, start, steps, no_remat_layers):
     """One in-process run of the port's train worker; returns the
     launches by kernel, after checking the resume point, the losses
     and the launch counts against ``launches_per_step``."""
@@ -724,7 +805,7 @@ def run_train_worker(env, logs, start, steps):
         shape_log.reset()
     t0 = time.monotonic()
     result = train(dict(env, TRAIN_STEPS=str(steps)), log=log,
-                   no_remat_layers=NO_REMAT_LAYERS)
+                   no_remat_layers=no_remat_layers)
     torch.cuda.synchronize()
     launches = {n: s.inner.launches for n, s in logs.items()}
     wall = time.monotonic() - t0
@@ -733,7 +814,7 @@ def run_train_worker(env, logs, start, steps):
                              f"(want {start}); {result.checkpoint_errors}")
     if not result.losses or not all(np.isfinite(list(result.losses.values()))):
         raise AssertionError(f"train losses {result.losses}")
-    per_step = launches_per_step(int(env["N_LAYERS"]), NO_REMAT_LAYERS)
+    per_step = launches_per_step(int(env["N_LAYERS"]), no_remat_layers)
     want = {n: per_step[n] * (steps - start) for n in logs}
     if launches != want:
         raise AssertionError(f"train launches {launches}, want {want}")
@@ -752,25 +833,109 @@ WORK_KINDS = (
 )
 
 
-def profile_step(run, top=10):
+# the MoE FFN's parts, by the function of models/moe.py that computes
+# them; a profiled MoE step splits its device time over these first
+MOE_PARTS = {
+    "_routing": "MoE routing (router, top-k, slots: element-wise)",
+    "_dispatch": "MoE dispatch/combine einsums",
+    "_combine": "MoE dispatch/combine einsums",
+    "_expert_ffn": "MoE expert FFN (matmuls, SwiGLU)",
+}
+
+
+class MoEScopes:
+    """While installed, each MoE part runs inside a profiler range named
+    ``moe.<function>``; the port's own code carries no ranges."""
+
+    def __enter__(self):
+        from dcos_commons_tpu_torch.models import moe
+
+        self.moe = moe
+        self.saved = {name: getattr(moe, name) for name in MOE_PARTS}
+        for name, fn in self.saved.items():
+            setattr(moe, name, self.scoped("moe." + name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.moe, name, fn)
+
+    @staticmethod
+    def scoped(label, fn):
+        def run(*args, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kw)
+        return run
+
+
+# device work in a Kineto trace, and the host spans that nest host ops
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_SPANS = ("cpu_op", "user_annotation")
+
+
+def time_by_part(trace):
+    """Device ms of a profile's Kineto trace (the dict
+    ``export_chrome_trace`` writes) by MoE part, forward and backward,
+    and the rest by kind of kernel (``WORK_KINDS``).  A device operation
+    belongs to the host op of its ``External id``; that op belongs to a
+    part when it ran inside the part's range (the forward, and remat's
+    recompute of it), or inside the ``evaluate_function`` of an autograd
+    node that a forward op in the range made: both carry the node's
+    ``Sequence number``.  Host ops nest by time on their thread."""
+    host = sorted((e for e in trace["traceEvents"] if e.get("ph") == "X"
+                   and e.get("cat") in HOST_SPANS),
+                  key=lambda e: (e["tid"], e["ts"], -e["dur"]))
+    where, part_of_seq, stack = {}, {}, []
+    for e in host:
+        while stack and (stack[-1][0]["tid"] != e["tid"] or e["ts"]
+                         >= stack[-1][0]["ts"] + stack[-1][0]["dur"]):
+            stack.pop()
+        ctx, in_bwd = stack[-1][1:] if stack else (None, False)
+        args = e.get("args", {})
+        if e["name"].startswith("moe."):
+            ctx = ("part", MOE_PARTS[e["name"][4:]])
+        elif e["name"].startswith("autograd::engine::evaluate_function"):
+            ctx, in_bwd = ("node", args.get("Sequence number")), True
+        if ctx and ctx[0] == "part" and not in_bwd \
+                and args.get("Sequence number", -1) >= 0:
+            part_of_seq[args["Sequence number"]] = ctx[1]
+        where[args.get("External id")] = ctx
+        stack.append((e, ctx, in_bwd))
+    split = {}
+    for e in trace["traceEvents"]:
+        if e.get("ph") != "X" or e.get("cat") not in DEVICE_WORK:
+            continue
+        ctx = where.get(e.get("args", {}).get("External id"))
+        kind = None
+        if ctx:
+            kind = ctx[1] if ctx[0] == "part" else part_of_seq.get(ctx[1])
+        kind = kind or next((kind for kind, marks in WORK_KINDS
+                             if any(m in e["name"] for m in marks)), "other")
+        split[kind] = split.get(kind, 0.0) + e["dur"] / 1e3
+    return split
+
+
+def profile_step(run, top=10, moe=False):
     """One ``run()`` under ``torch.profiler``: logs the ``top`` device
     operations by device time, the port's kernels, the device time by
-    kind of work, and the device's busy time against the step's
-    host-clock time (with the profiler on).  Fails when the profiler
-    records no device time."""
+    kind of work (``time_by_part``, from the exported trace; with
+    ``moe``, the MoE parts run in ranges and are split out first), and
+    the device's busy time against the step's host-clock time (with the
+    profiler on).  Fails when the profiler records no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        with MoEScopes() if moe else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
     ops = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA
-           and e.self_device_time_total > 0]
+           and e.self_device_time_total > 0 and not e.key.startswith("moe.")]
     if not ops:
         raise AssertionError("torch.profiler recorded no device time")
     busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
@@ -788,31 +953,29 @@ def profile_step(run, top=10):
             ms = e.self_device_time_total / 1e3
             log(f"  port kernel {ms:9.3f} ms {ms / busy_ms:6.1%} "
                 f"x{e.count:<5d} {e.key[:90]}")
-    split = {}
-    for e in ops:
-        kind = next((kind for kind, marks in WORK_KINDS
-                     if any(m in e.key for m in marks)), "other")
-        split[kind] = split.get(kind, 0.0) + e.self_device_time_total / 1e3
-    log("  by kind: " + ", ".join(
+    path = os.path.join(ROOT, "build", "smoke", "profiled_step.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        split = time_by_part(json.load(f))
+    os.remove(path)
+    log(f"  by kind ({sum(split.values()):.1f} ms attributed): " + ", ".join(
         f"{kind} {ms:.1f} ms ({ms / busy_ms:.1%})"
         for kind, ms in sorted(split.items(), key=lambda kv: -kv[1])))
 
 
-def time_train_step(logs, warmup=2, steps=5):
-    """make_train_step at bench.py's training shape: tokens/s, step ms
-    and peak device memory (host clock around synchronised steps), then
-    one more step under the profiler."""
+def time_train_step(logs, config, batch, label, warmup=2, steps=5):
+    """make_train_step of ``config`` at ``batch``: tokens/s, step ms and
+    peak device memory (host clock around synchronised steps), then one
+    more step under the profiler."""
     from dcos_commons_tpu_torch.models.transformer import (
-        adamw, config_from_env, init_params, make_train_step,
+        adamw, init_params, make_train_step,
     )
     from dcos_commons_tpu_torch.utils import synthetic_tokens
 
-    config = config_from_env(TRAIN_ENV, dtype=torch.bfloat16,
-                             no_remat_layers=NO_REMAT_LAYERS)
     params = init_params(config, seed=0, device="cuda")
     step = make_train_step(config, adamw(params, LR))
     tokens, targets = synthetic_tokens(
-        TRAIN_BATCH, config.max_seq, config.vocab,
+        batch, config.max_seq, config.vocab,
         torch.Generator(device="cuda").manual_seed(1),
     )
     for _ in range(warmup):
@@ -829,11 +992,13 @@ def time_train_step(logs, warmup=2, steps=5):
     peak = torch.cuda.max_memory_allocated()
     if not np.isfinite(float(loss)):
         raise AssertionError(f"train loss {float(loss)}")
-    log(f"train step [batch {TRAIN_BATCH}, seq {config.max_seq}] bf16, "
-        f"remat full + 1 stored layer: {dt / steps * 1e3:.1f} ms/step, "
-        f"{TRAIN_BATCH * config.max_seq * steps / dt:,.0f} tokens/s, peak "
+    log(f"train step {label} [batch {batch}, seq {config.max_seq}] bf16, "
+        f"remat full + {config.no_remat_layers} stored layers: "
+        f"{dt / steps * 1e3:.1f} ms/step, "
+        f"{batch * config.max_seq * steps / dt:,.0f} tokens/s, peak "
         f"device memory {peak / 2**30:.2f} GiB, loss {float(loss):.4f}")
-    profile_step(lambda: step(params, tokens, targets))
+    profile_step(lambda: step(params, tokens, targets),
+                 moe=config.n_experts > 0)
     launches = {n: s.inner.launches for n, s in logs.items()}
     per_step = launches_per_step(config.n_layers, config.no_remat_layers)
     if launches != {n: per_step[n] * (steps + 1) for n in logs}:
@@ -843,21 +1008,23 @@ def time_train_step(logs, warmup=2, steps=5):
     return launches
 
 
-def phase_train(logs):
-    """Phase 7: the train worker from scratch, its resume, and the timed
-    step.  Returns the launches by kernel over the three runs and the
+def phase_train(logs, env, no_remat_layers, steps, timed):
+    """Phases 7 and 11: the train worker of ``env`` from scratch to
+    ``steps[0]``, its resume to ``steps[1]``, then ``timed()`` (the timed
+    step).  Returns the launches by kernel over the three runs and the
     shapes each kernel was launched at in them."""
     ckpt = os.path.join(ROOT, "build", "smoke", "train_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
     # a flagship train-state checkpoint is params + two moments widened
-    # to f32: 872,466,432 x 3 x 4 bytes = 10.5 GB; with CHECKPOINT_KEEP
-    # 1 the next save lands before the last is pruned
+    # to f32: 872,466,432 x 3 x 4 bytes = 10.5 GB (the MoE flagship's
+    # 872,564,736 as many); with CHECKPOINT_KEEP 1 the next save lands
+    # before the last is pruned
     free = shutil.disk_usage(os.path.join(ROOT, "build")).free
     log(f"disk free under build/: {free / 2**30:.1f} GiB")
     if free < 22e9:
-        raise AssertionError("phase 7 needs 22 GB of disk for two "
-                             "flagship checkpoints")
-    env = dict(TRAIN_ENV, CHECKPOINT_DIR=ckpt, CHECKPOINT_KEEP="1",
+        raise AssertionError("the train worker needs 22 GB of disk for "
+                             "two flagship checkpoints")
+    env = dict(env, CHECKPOINT_DIR=ckpt, CHECKPOINT_KEEP="1",
                SANDBOX=os.path.join(ROOT, "build", "smoke"))
     shapes = {n: set() for n in logs}
 
@@ -865,13 +1032,15 @@ def phase_train(logs):
         for n, shape_log in logs.items():
             shapes[n].update(shape_log.shapes)
 
-    total = run_train_worker(env, logs, 0, 6)
+    first, last = steps
+    total = run_train_worker(env, logs, 0, first, no_remat_layers)
     note_shapes()
     names = sorted(n for n in os.listdir(ckpt) if n.startswith("step_"))
-    if not names or not names[-1].startswith("step_0000000006"):
-        raise AssertionError(f"no step-6 checkpoint: {names}")
-    for run in (lambda: run_train_worker(env, logs, 6, 8),
-                lambda: time_train_step(logs)):
+    if not names or not names[-1].startswith(f"step_{first:010d}"):
+        raise AssertionError(f"no step-{first} checkpoint: {names}")
+    for run in (lambda: run_train_worker(env, logs, first, last,
+                                         no_remat_layers),
+                timed):
         launches = run()
         note_shapes()
         total = {n: total[n] + launches[n] for n in total}
@@ -1003,30 +1172,78 @@ def main():
 
     # phase 6: the train step on the card against the CPU
     watchdog.phase("6 train-step parity", 180)
-    train_step_parity()
+    train_step_parity(TRAIN_ENV, "flagship",
+                      no_remat_layers=NO_REMAT_LAYERS)
 
     # phase 7: the train worker at the flagship width, then the timed step
     watchdog.phase("7 train worker and timed step", 600)
-    train_launches, train_shapes = phase_train(logs)
-    launches = {n: slot_launches[n] + paged_launches[n] + train_launches[n]
-                for n in logs}
+    from dcos_commons_tpu_torch.models import config_from_env
 
-    # the kernels line: every kernel at the flagship training shape
+    flagship = config_from_env(TRAIN_ENV, dtype=torch.bfloat16,
+                               no_remat_layers=NO_REMAT_LAYERS)
+    train_launches, train_shapes = phase_train(
+        logs, TRAIN_ENV, NO_REMAT_LAYERS, (6, 8),
+        lambda: time_train_step(logs, flagship, TRAIN_BATCH, "flagship"))
+
+    # phase 9: the MoE flagship served on both pool paths
+    watchdog.phase("9 MoE serving", 300)
+    moe_launches = {}
+    for label, extra, slot_path in (
+        ("MoE slot pool", {"KV_PAGE_TOKENS": "0"}, True),
+        ("MoE paged", {"KV_PAGE_TOKENS": "16", "PREFILL_CHUNK_TOKENS": "64"},
+         False),
+    ):
+        env = dict(FLAGSHIP_ENV, **MOE_ENV, **extra, SANDBOX=sandbox)
+        replies, launches, stats, wall = serve(env, requests, logs)
+        report_serving(label, replies, launches, stats, wall)
+        if (launches["K1"] == 0 or bool(launches["K2"]) != slot_path
+                or launches["K3"] or launches["K4"]):
+            raise AssertionError(f"{label} kernels: {launches}")
+        moe_launches = {n: moe_launches.get(n, 0) + launches[n]
+                        for n in logs}
+
+    # phase 10: the MoE train step card against CPU, and the MoE paths'
+    # greedy tokens, in f32
+    watchdog.phase("10 MoE parity", 300)
+    train_step_parity(dict(TRAIN_ENV, **MOE_ENV), "MoE",
+                      moe_capacity_factor=MOE_CAPACITY)
+    cross_path_check(dict(FLAGSHIP_ENV, **MOE_ENV), "MoE f32")
+
+    # phase 11: the MoE train worker, its resume, the timed and profiled
+    # step at bench.py bench_moe's batch
+    watchdog.phase("11 MoE train worker and timed step", 600)
+    moe_config = config_from_env(dict(TRAIN_ENV, **MOE_ENV),
+                                 dtype=torch.bfloat16,
+                                 moe_capacity_factor=MOE_CAPACITY)
+    moe_train_launches, moe_train_shapes = phase_train(
+        logs, dict(TRAIN_ENV, **MOE_ENV), 0, (4, 6),
+        lambda: time_train_step(logs, moe_config, MOE_BATCH, "MoE"))
+    launches = {n: slot_launches[n] + paged_launches[n] + train_launches[n]
+                + moe_launches[n] + moe_train_launches[n] for n in logs}
+    for n in logs:
+        train_shapes[n] |= moe_train_shapes[n]
+
+    # phase 8, last: every kernel at every shape the train paths gave it.
+    # The kernels line times each at the flagship training shape
     # (bench.py batch 12: K1 [24576, 2048], K2-K4 [192, 2048, 2048, 128]),
     # which the timed step launched; K3/K4 were checked there in 2b
     watchdog.phase("8 kernels at the main path's shapes", 300)
     seq = int(TRAIN_ENV["SEQ_LEN"])
     k1_train = (TRAIN_BATCH * seq, 2048, torch.bfloat16)
     attn_train = (TRAIN_BATCH * 16, seq, seq, 128, True, torch.bfloat16)
+    k1_moe = (MOE_BATCH * seq, 2048, torch.bfloat16)
+    attn_moe = (MOE_BATCH * 16, seq, seq, 128, True, torch.bfloat16)
     if (k1_train not in train_shapes["K1"]
             or attn_train not in train_shapes["K2"]
-            or attn_train not in train_shapes["K3"]):
+            or attn_train not in train_shapes["K3"]
+            or k1_moe not in moe_train_shapes["K1"]
+            or attn_moe not in moe_train_shapes["K3"]):
         raise AssertionError(f"train path shapes {train_shapes}")
     r1 = k1_case(*k1_train, gen)
     log(f"K1 at the training shape {list(k1_train)}: {fmt_k1(r1)}")
     r2 = k2_case(*attn_train[:4], torch.bfloat16, True, gen)
     log(f"K2 at the training shape {list(attn_train[:4])}: {fmt(r2)}")
-    # ... and at every other shape the train path gave it
+    # ... and at every other shape the train paths gave it
     checked = {
         "K1": {k1_train, (4096, 2048, torch.bfloat16)}
         | {(rows, 2048, dt) for rows in (1, 8, 64, 960)

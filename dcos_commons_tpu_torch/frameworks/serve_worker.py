@@ -2,8 +2,8 @@
 ``frameworks/jax/serve_worker.py``.
 
 The same env contract (model: ``VOCAB``/``D_MODEL``/``N_LAYERS``/
-``N_HEADS``/``N_KV_HEADS``/``D_FF``/``SEQ_LEN``; serving: ``MAX_LEN``,
-``MAX_NEW_TOKENS``, ``SERVE_BATCH``, ``SERVE_SLOTS``,
+``N_HEADS``/``N_KV_HEADS``/``D_FF``/``SEQ_LEN``/``N_EXPERTS``; serving:
+``MAX_LEN``, ``MAX_NEW_TOKENS``, ``SERVE_BATCH``, ``SERVE_SLOTS``,
 ``KV_PAGE_TOKENS``, ``KV_PAGES``, ``PREFILL_CHUNK_TOKENS``,
 ``PREFIX_CACHE``, ``KV_DTYPE``, ``WEIGHT_DTYPE``, ``SERVE_ROLE``,
 ``SERVE_DECODE_PODS``, ``SERVE_QUEUE_TIMEOUT_S``, ``PORT_HTTP``,
@@ -15,8 +15,9 @@ paths: the paged arena by default, the slot pool with
 
 ``TORCH_DEVICE`` (default ``cuda``) picks the device, the counterpart
 of the JAX worker's ``JAX_PLATFORMS=cpu`` switch: bf16 on the card,
-f32 on the CPU.  Without CUDA and without ``TORCH_DEVICE=cpu`` the
-worker fails to start.  Weights are random from seed 0, or, with
+f32 on the CPU; a MoE router stays f32 on both, and under
+``WEIGHT_DTYPE=int8``.  Without CUDA and without ``TORCH_DEVICE=cpu``
+the worker fails to start.  Weights are random from seed 0, or, with
 ``CHECKPOINT_DIR``, the params of the train worker's latest checkpoint
 (either package's: the file format is shared).
 

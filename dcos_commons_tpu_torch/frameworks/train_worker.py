@@ -5,7 +5,8 @@ The same env contract: ``TRAIN_STEPS``, ``CHECKPOINT_DIR``,
 ``CHECKPOINT_KEEP``, ``TRAIN_ASYNC_CKPT``, ``TRAIN_GRAD_ACCUM``,
 ``TRAIN_INFLIGHT_STEPS``, ``DATA_DIR``, ``KEEPALIVE_S``, ``SANDBOX``
 (the steplog's directory), the model's ``VOCAB``/``D_MODEL``/
-``N_LAYERS``/``N_HEADS``/``N_KV_HEADS``/``D_FF``/``SEQ_LEN``, and the
+``N_LAYERS``/``N_HEADS``/``N_KV_HEADS``/``D_FF``/``SEQ_LEN``/
+``N_EXPERTS`` (> 0: the MoE variant, ``D_FF`` per expert), and the
 scheduler's gang contract (``TPU_WORKER_ID``/``TPU_WORKER_COUNT``/
 ``TPU_NUM_SLICES``/...), plus ``TORCH_DEVICE`` (default ``cuda``) as in
 the serve worker.  The same config (``config_from_env`` with bf16, on

@@ -3,9 +3,12 @@
 ``params_from_jax`` takes the JAX package's flagship param tree as
 numpy arrays (or anything ``np.asarray`` reads, such as JAX arrays):
 ``embed``, ``layers`` with every leaf stacked on a leading
-``n_layers`` axis, ``final_norm``; int8 ``{"q", "scale"}`` leaves
-included.  It returns the port's tree of the same shape, so both
-packages compute the same function of the same weights.
+``n_layers`` axis, ``final_norm``; int8 ``{"q", "scale"}`` leaves and
+the MoE leaves (``router [n, d, E]``, expert stacks ``w_gate``/``w_up``
+``[n, E, d, f]`` and ``w_down [n, E, f, d]``) included.  It returns the
+port's tree of the same shape, so both packages compute the same
+function of the same weights.  The router stays f32 whatever ``dtype``
+the other float leaves take, as the JAX package keeps it.
 
 ``params_to_jax`` and ``train_state_to_jax`` go the other way, to trees
 of numpy arrays: the params, and ``{"params", "opt_state"}`` with the
@@ -28,9 +31,9 @@ from dcos_commons_tpu_torch.device import resolve_device
 from dcos_commons_tpu_torch.utils.tree import tree_map
 
 Params = Dict[str, Any]
-_DENSE_LAYER_LEAVES = {
+_LAYER_LEAVES = {
     "attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up",
-    "w_down",
+    "w_down", "router",
 }
 
 
@@ -58,16 +61,16 @@ def params_from_jax(tree: Params, device=None,
     """The JAX package's param tree -> the port's, on ``device``
     (default ``cuda``) with float leaves in ``dtype``."""
     dev = resolve_device(device)
-    extra = set(tree["layers"]) - _DENSE_LAYER_LEAVES
+    extra = set(tree["layers"]) - _LAYER_LEAVES
     if extra:
-        raise NotImplementedError(
-            f"layer leaves {sorted(extra)} (MoE) are not ported yet: "
-            "ROADMAP queue 1, 'MoE and long-context'"
-        )
+        raise ValueError(f"unexpected layer leaves {sorted(extra)}")
     return {
         "embed": _leaf(tree["embed"], dev, dtype),
-        "layers": {name: _leaf(leaf, dev, dtype)
-                   for name, leaf in tree["layers"].items()},
+        "layers": {
+            name: _leaf(leaf, dev,
+                        torch.float32 if name == "router" else dtype)
+            for name, leaf in tree["layers"].items()
+        },
         "final_norm": _leaf(tree["final_norm"], dev, dtype),
     }
 

@@ -15,6 +15,11 @@ Differences from the reference, none visible in the outputs:
 - The slot pool's prefill attends with kernel K2 (``flash_attention``);
   decode steps and the paged path attend with a masked softmax over
   the cache in f32, as the reference does (no kernel there).
+
+MoE layers route drop-free here (``_ffn_block(..., decode=True)``: the
+capacity covers every token), as in the reference: serving never drops
+a token, and a token's output then depends on that token alone, so
+cached decode, chunked paged prefill and a full forward agree.
 """
 
 from __future__ import annotations
@@ -147,7 +152,7 @@ def _prefill_trunk(config, params, tokens, write):
         )
         attn = attn.transpose(1, 2).reshape(b, s, -1)
         x = x + attn @ dq(layer["wo"], x.dtype)
-        x = _ffn_block(config, layer, x)
+        x, _ = _ffn_block(config, layer, x, decode=True)
         write(i, k, v)
     return x
 
@@ -272,7 +277,7 @@ def _decode_trunk(config, params, cache, x, positions, store, gather,
         attn = _attend(config, q, gather(i, "k"), gather(i, "v"), valid,
                        *scales)
         x = x + attn @ dq(layer["wo"], x.dtype)
-        x = _ffn_block(config, layer, x)
+        x, _ = _ffn_block(config, layer, x, decode=True)
     return x
 
 

@@ -4,8 +4,11 @@
 Each big matmul leaf ``W`` in ``params["layers"]`` becomes
 ``{"q": int8, "scale": f32}`` with the scale the max-abs over W's
 contraction axis (-2: ``x @ W`` contracts it), so dequantization
-commutes with the matmul.  Embeddings and norms stay native.  Every
-projection reads its weight through :func:`dequantize_weight`.
+commutes with the matmul.  The MoE expert stacks ``[n, E, d, f]``
+quantize the same way under the same leaf names, over their axis -2.
+Embeddings, norms and the MoE router stay native (the router is f32 and
+decides the routing).  Every projection reads its weight through
+:func:`dequantize_weight`.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 Params = Dict[str, Any]
 
 # layer leaves eligible for weight-only quantization; everything else
-# (norms) stays native
+# (norms, the MoE router) stays native
 _QUANT_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 

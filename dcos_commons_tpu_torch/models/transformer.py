@@ -20,10 +20,15 @@ with gradient accumulation, and ``adamw``, the counterpart of
 optimizer's state out as optax's, so checkpoints cross between the
 packages.
 
-Not in this slice, and raising ``NotImplementedError``: MoE layers
-(``n_experts > 0``), ring and Ulysses sequence parallelism (ROADMAP
-queue 1, "MoE and long-context"), a mesh (queue 1, "Multi-GPU train
-step").
+``n_experts > 0`` swaps every layer's dense SwiGLU for a mixture of
+experts (``models/moe.py``: an f32 router, per-expert SwiGLU, the
+switch load-balancing aux loss, which ``loss_fn`` adds as the reference
+does); the expert leaves sit in the same stacked tree.
+
+Not in this slice, and raising ``NotImplementedError``: ring and
+Ulysses sequence parallelism (ROADMAP queue 1, "MoE and
+long-context"), a mesh and with it expert parallelism (queue 1, item 8,
+"Multi-GPU train step").
 """
 
 from __future__ import annotations
@@ -36,6 +41,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from dcos_commons_tpu_torch.device import resolve_device
+from dcos_commons_tpu_torch.models.moe import (
+    MoEConfig,
+    init_moe_params,
+    moe_ffn,
+)
 from dcos_commons_tpu_torch.models.quantize import dequantize_weight as dq
 from dcos_commons_tpu_torch.ops.attention import flash_attention
 from dcos_commons_tpu_torch.ops.rmsnorm import rms_norm
@@ -84,6 +94,9 @@ class TransformerConfig:
     use_ring_attention: bool = False
     use_ulysses_attention: bool = False
     sp_axis: str = "sp"
+    # MoE variant: n_experts > 0 swaps the dense SwiGLU for a mixture of
+    # experts (models/moe.py).  Tokens route in groups of up to
+    # moe_group_size (see _ffn_block); moe_impl is "onehot" or "sorted"
     n_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.5
@@ -123,11 +136,6 @@ def config_from_env(env: Dict[str, str], **overrides) -> TransformerConfig:
 
 def check_supported(config: TransformerConfig) -> None:
     """Raise for what this slice of the port does not run."""
-    if config.n_experts > 0:
-        raise NotImplementedError(
-            "MoE layers (n_experts > 0) are not ported yet: ROADMAP "
-            "queue 1, 'MoE and long-context'"
-        )
     if config.use_ring_attention or config.use_ulysses_attention:
         raise NotImplementedError(
             "ring/Ulysses sequence parallelism is not ported yet: "
@@ -164,15 +172,30 @@ def init_params(config: TransformerConfig, seed: int = 0,
         "wv": normal((n, d, kv * hd), d ** -0.5),
         "wo": normal((n, h * hd, d), (h * hd) ** -0.5),
         "mlp_norm": torch.ones((n, d), dtype=dt, device=dev),
-        "w_gate": normal((n, d, f), d ** -0.5),
-        "w_up": normal((n, d, f), d ** -0.5),
-        "w_down": normal((n, f, d), f ** -0.5),
     }
+    if config.n_experts > 0:
+        # the router stays f32 under a bf16 config (init_moe_params)
+        layers.update(init_moe_params(_moe_config(config), gen, dev,
+                                      lead=(n,)))
+    else:
+        layers.update({
+            "w_gate": normal((n, d, f), d ** -0.5),
+            "w_up": normal((n, d, f), d ** -0.5),
+            "w_down": normal((n, f, d), f ** -0.5),
+        })
     return {
         "embed": embed,
         "layers": layers,
         "final_norm": torch.ones((d,), dtype=dt, device=dev),
     }
+
+
+def _moe_config(config: TransformerConfig) -> MoEConfig:
+    return MoEConfig(
+        d_model=config.d_model, d_ff=config.d_ff,
+        n_experts=config.n_experts, top_k=config.moe_top_k,
+        capacity_factor=config.moe_capacity_factor, dtype=config.dtype,
+    )
 
 
 def layer_params(layers: Params, i: int) -> Params:
@@ -237,14 +260,34 @@ def _mlp_block(layer, x):
     return x + (gate * up) @ dq(layer["w_down"], x.dtype)
 
 
-def _ffn_block(config: TransformerConfig, layer, x):
-    """The per-layer FFN: dense SwiGLU.  The JAX package's MoE branch
-    (and its aux loss) is not ported; ``check_supported`` refuses it."""
-    check_supported(config)
-    return _mlp_block(layer, x)
+def _ffn_block(config: TransformerConfig, layer, x, decode: bool = False):
+    """The per-layer FFN: dense SwiGLU or MoE.  Returns (x, aux): the
+    MoE aux loss, the mean over routing groups (0.0 when dense).
+
+    MoE: tokens route in groups of ``s`` positions when ``s <=
+    moe_group_size``, else of ``moe_group_size`` when it divides ``s``,
+    else of ``s`` (groups never straddle batch rows).  In ``decode`` the
+    capacity covers every token of the group: a server never drops a
+    token, and drop-free routing is what makes cached decode equal a
+    full forward."""
+    if config.n_experts <= 0:
+        return _mlp_block(layer, x), 0.0
+    b, s, d = x.shape
+    normed = rms_norm(x, layer["mlp_norm"])
+    gs = config.moe_group_size
+    group = s if s <= gs else (gs if s % gs == 0 else s)
+    moe_params = {key: layer[key]
+                  for key in ("router", "w_gate", "w_up", "w_down")}
+    y, aux = moe_ffn(
+        _moe_config(config), moe_params,
+        normed.reshape(b * s // group, group, d),
+        capacity=group if decode else None, impl=config.moe_impl,
+    )
+    return x + y.reshape(b, s, d), aux.mean()
 
 
 def _layer_fn(config: TransformerConfig, layers, i: int, x, positions):
+    """One layer: (x, the FFN's aux)."""
     layer = layer_params(layers, i)
     x = _attention_block(config, layer, x, positions)
     return _ffn_block(config, layer, x)
@@ -279,7 +322,8 @@ def _save_attn_layer(config: TransformerConfig, layers, i: int, x,
 
 
 def _layer_scan(config: TransformerConfig, layers, x, positions):
-    """Run x through the stack of layers.
+    """Run x through the stack of layers: (x, the aux summed over
+    layers).
 
     Remat (``config.remat``, only while autograd records): each layer
     runs under ``torch.utils.checkpoint`` — ``"full"`` recomputes the
@@ -293,16 +337,18 @@ def _layer_scan(config: TransformerConfig, layers, x, positions):
     remat = config.remat and torch.is_grad_enabled()
     k = config.no_remat_layers if config.remat else 0
     first_stored = n_layers - min(max(k, 0), n_layers)
+    aux_total = 0.0
     for i in range(n_layers):
         if not remat or i >= first_stored:
-            x = _layer_fn(config, layers, i, x, positions)
+            x, aux = _layer_fn(config, layers, i, x, positions)
         elif config.remat_policy == "save-attn":
-            x = _save_attn_layer(config, layers, i, x, positions)
+            x, aux = _save_attn_layer(config, layers, i, x, positions)
         else:
-            x = _checkpointed(
+            x, aux = _checkpointed(
                 lambda x, i=i: _layer_fn(config, layers, i, x, positions), x
             )
-    return x
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def _logits(config: TransformerConfig, params: Params, x: torch.Tensor
@@ -322,9 +368,9 @@ def _trunk(
     params: Params,
     tokens: torch.Tensor,
     positions: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """tokens [b, s] -> final hidden states [b, s, d] (the JAX
-    ``_trunk``'s MoE aux term is not ported)."""
+):
+    """tokens [b, s] -> (final hidden states [b, s, d], MoE aux summed
+    over layers; 0.0 when dense)."""
     check_supported(config)
     b, s = tokens.shape
     if positions is None:
@@ -340,7 +386,8 @@ def forward(
     positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """tokens [b, s] -> logits [b, s, vocab] (f32), on tokens' device."""
-    return _logits(config, params, _trunk(config, params, tokens, positions))
+    x, _aux = _trunk(config, params, tokens, positions)
+    return _logits(config, params, x)
 
 
 def _nll_mean(
@@ -377,8 +424,12 @@ def loss_fn(
     config: TransformerConfig, params: Params, tokens: torch.Tensor,
     targets: torch.Tensor,
 ) -> torch.Tensor:
-    return _nll_mean(config, params, _trunk(config, params, tokens),
-                     targets)
+    x, aux = _trunk(config, params, tokens)
+    loss = _nll_mean(config, params, x, targets)
+    if config.n_experts > 0:
+        # switch-transformer load-balancing term, averaged per layer
+        loss = loss + config.moe_aux_weight * aux / config.n_layers
+    return loss
 
 
 def adamw(params: Params, lr: float = 3e-4) -> torch.optim.AdamW:

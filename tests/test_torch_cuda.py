@@ -5,7 +5,9 @@ alignments that take its scalar loop and in f16, the bf16 K2-K4
 (wgmma + TMA) also at the edges of their tiles, with seq_q != seq_k,
 across heads and run to run -- the autograd Function's
 gradients against the plain ones, their launch counters, and the checks
-their wrappers make.  Marked
+their wrappers make.  The MoE path in f32, card against CPU: moe_ffn
+(both dispatches) and one MoE train step, routing first (each test
+prints the CPU run's smallest top-k probability margin).  Marked
 ``cuda``: they skip on a host without a CUDA card.  On the card, where
 JAX (which tests/conftest.py imports) need not be installed:
 ``python -m pytest --noconftest -p no:cacheprovider
@@ -415,3 +417,98 @@ def test_inflight_window_waits_on_the_drained_step_only(gen):
     for (_, host), loss in zip(drained, losses):
         assert host.device.type == "cpu"
         assert float(host) == float(loss * 2)
+
+
+# -- the MoE path, card against CPU in f32 ----------------------------------
+
+
+@pytest.fixture
+def no_tf32(gen):
+    """f32 products in f32 on the card, as on the CPU."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield gen
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _routing_margin(probs, k):
+    """The smallest gap between neighbouring router probabilities among
+    a token's first k + 1: how near its routing is to a tie."""
+    top = probs.topk(k + 1, dim=-1).values
+    return (top[..., :-1] - top[..., 1:]).min().item()
+
+
+@pytest.mark.parametrize("impl", ["onehot", "sorted"])
+def test_moe_ffn_card_matches_cpu(no_tf32, impl):
+    """moe_ffn at the MoE flagship's expert shape (d 2048, 4 experts of
+    d_ff 2048, top-2, capacity 1.25) over two groups of 256 tokens:
+    routing equal, outputs within 1e-5 + 1e-5 relative, aux within
+    1e-6 (f32 sums in another order)."""
+    from dcos_commons_tpu_torch.models import moe
+
+    config = moe.MoEConfig(d_model=2048, d_ff=2048, n_experts=4, top_k=2,
+                           capacity_factor=1.25, dtype=torch.float32)
+    params = moe.init_moe_params(config, torch.Generator().manual_seed(0),
+                                 torch.device("cpu"))
+    x = torch.randn(2, 256, 2048, generator=torch.Generator().manual_seed(1))
+    card = {n: t.cuda() for n, t in params.items()}
+    _, idx_c, probs_c, _ = moe._route(config, params, x)
+    _, idx_g, _, _ = moe._route(config, card, x.cuda())
+    print(f"moe_ffn {impl}: smallest CPU top-2 margin "
+          f"{_routing_margin(probs_c, 2):.3e}")
+    assert torch.equal(idx_g.cpu(), idx_c)
+    want_y, want_aux = moe.moe_ffn(config, params, x, impl=impl)
+    got_y, got_aux = moe.moe_ffn(config, card, x.cuda(), impl=impl)
+    torch.testing.assert_close(got_y.cpu(), want_y, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, atol=1e-6, rtol=0)
+
+
+def test_moe_train_step_card_matches_cpu(no_tf32):
+    """One f32 MoE train step (2 layers, d 256, 4 heads of 64: the FMA
+    kernels K2-K4 on the card; two routing groups a row, full remat) on
+    the card against the CPU: routing equal at every call, forward and
+    remat recompute, then the loss within 1e-5 relative and every
+    gradient leaf, the router's included, within 1e-4 relative
+    Frobenius error."""
+    from dcos_commons_tpu_torch.models import moe
+    from dcos_commons_tpu_torch.models import transformer as tf
+    from dcos_commons_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    config = tf.TransformerConfig(
+        vocab=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=4,
+        d_ff=256, max_seq=128, n_experts=4, moe_capacity_factor=1.25,
+        moe_group_size=64, dtype=torch.float32, remat=True)
+    cpu_params = tf.init_params(config, seed=2, device="cpu")
+    toks = torch.randint(0, 512, (2, 129),
+                         generator=torch.Generator().manual_seed(2))
+    inner, out = moe._route, {}
+    for dev in ("cuda", "cpu"):
+        calls = []
+
+        def route(*args):
+            r = inner(*args)
+            calls.append((r[1].cpu(), r[2].cpu()))
+            return r
+
+        params = tree_map(lambda t: t.to(dev), cpu_params)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        moe._route = route
+        try:
+            loss = tf.loss_fn(config, params, toks[:, :-1].to(dev),
+                              toks[:, 1:].to(dev))
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            moe._route = inner
+        out[dev] = (loss.item(), [g.cpu() for g in grads], calls)
+    (loss_g, grads_g, calls_g), (loss_c, grads_c, calls_c) = (
+        out["cuda"], out["cpu"])
+    assert len(calls_g) == len(calls_c) == 4     # 2 forwards, 2 recomputes
+    margin = min(_routing_margin(probs, 2) for _, probs in calls_c)
+    print(f"MoE train step: smallest CPU top-2 margin {margin:.3e}")
+    for (idx_g, _), (idx_c, _) in zip(calls_g, calls_c):
+        assert torch.equal(idx_g, idx_c)
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    for g, c in zip(grads_g, grads_c):
+        assert ((g - c).norm() / c.norm()).item() <= 1e-4

@@ -60,6 +60,7 @@ def test_every_port_module_imports_without_jax():
     assert {
         "dcos_commons_tpu_torch.frameworks.serve_worker",
         "dcos_commons_tpu_torch.frameworks.train_worker",
+        "dcos_commons_tpu_torch.models.moe",
         "dcos_commons_tpu_torch.utils.checkpoint",
         "dcos_commons_tpu_torch.utils.data",
         "dcos_commons_tpu_torch.trace.steplog",

@@ -272,13 +272,30 @@ def test_sampling_needs_a_generator():
     assert int(t_decode.sample_token(logits, 0.0)) == 2
 
 
+def test_moe_config_runs():
+    """``n_experts > 0`` runs on one device: init, forward, loss and a
+    greedy continuation (tests/test_torch_moe.py holds it against the
+    JAX package)."""
+    cfg = t_tf.TransformerConfig(n_experts=4, d_model=32, n_heads=4,
+                                 n_kv_heads=4, vocab=64, n_layers=1,
+                                 d_ff=32, dtype=torch.float32)
+    params = t_tf.init_params(cfg, device="cpu")
+    assert params["layers"]["w_gate"].shape == (1, 4, 32, 32)
+    tokens = torch.from_numpy(_tokens(10, 2, 6)).long()
+    assert t_tf.forward(cfg, params, tokens).shape == (2, 6, 64)
+    assert torch.isfinite(t_tf.loss_fn(cfg, params, tokens, tokens))
+    assert t_decode.generate(cfg, params, tokens, 3).shape == (2, 3)
+
+
 def test_moe_and_sequence_parallel_raise():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        t_tf.init_params(
-            t_tf.TransformerConfig(n_experts=4, d_model=32, n_heads=4,
-                                   vocab=64, n_layers=1),
-            device="cpu",
-        )
+    """What stays unported raises: expert parallelism over a mesh (the
+    MoE's ``axis_name``), ring and Ulysses attention."""
+    from dcos_commons_tpu_torch.models.moe import MoEConfig, moe_ffn
+
+    with pytest.raises(NotImplementedError, match="item 8"):
+        moe_ffn(MoEConfig(d_model=32, d_ff=32, n_experts=4,
+                          dtype=torch.float32), {}, torch.zeros(4, 32),
+                axis_name="ep")
     cfg = t_tf.TransformerConfig(use_ring_attention=True, d_model=32,
                                  n_heads=4, vocab=64, n_layers=1,
                                  dtype=torch.float32)
