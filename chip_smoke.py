@@ -35,10 +35,11 @@ CUDA card).  Phases, each fatal on failure:
    second run resumes from it to step 8; K1-K4 launch exactly the
    counts the remat policy implies.  Then ``make_train_step`` at
    bench.py's training batch (12) is timed: tokens/s, step ms, peak
-   device memory; one more step runs under ``torch.profiler``, which
-   prints the ten device operations that took the most time in it, the
-   port's kernels, the device time by kind of work and the device's
-   busy share of the step.
+   device memory; two more steps run under ``torch.profiler``, the
+   first its warm-up, and the second's trace gives the ten device
+   operations that took the most time in it, the port's kernels (each
+   kernel's launches in the trace must equal its counter's), the device
+   time by kind of work and the device's busy share of the step.
 9. The MoE flagship (bench.py ``moe_flagship_config``: the flagship's
    width with 4 experts of d_ff 2048, top-2) served on both pool paths
    as in phases 3 and 4, with the same kernel rules.
@@ -51,10 +52,27 @@ CUDA card).  Phases, each fatal on failure:
    bench_moe's batch 8 timed and profiled as in phase 7, the profile's
    device time split first into the MoE parts (routing, the dispatch
    and combine einsums, the expert FFN: ``time_by_part``).
+12. The gang step (``make_train_step(mesh=...)``).  (a) A world of one
+   over NCCL, through the port's rendezvous (``tcp://127.0.0.1``): the
+   flagship (12 layers, bf16, batch 12) against the no-mesh step, 2
+   steps bit for bit (or within 1e-6 relative), then both timed.  (b)
+   Two processes on the one card joined by gloo, at the flagship's
+   width cut to 4 layers, global batch 4: the dense model under dp2,
+   tp2 and fsdp2, the MoE under tp2 and ep2, each against the
+   one-process step on the card (bf16: the loss within 1e-2; f32 at 2
+   layers and seq 256, TF32 off: the loss within 1e-5, the first
+   step's gradients and the params as ``compare_f32`` says); K2-K4 launch on each rank's rows and h/tp
+   heads; each step's time split into collectives and compute.
 8. Run last: every kernel against its plain version at each shape the
-   train runs of phases 7 and 11 launched it at (K1 [24576, 16384 or
-   4096, 2048] bf16, K2-K4 [192, 128 or 32, 2048, 2048, 128] bf16
-   causal), within ``TOL``.
+   train runs of phases 7, 11 and 12 launched it at (K1 [24576, 16384
+   or 4096, 2048] bf16, K2-K4 [192, 128 or 32, 2048, 2048, 128] bf16
+   causal, and the gang's), within ``TOL``.
+
+``python3 chip_smoke.py --nccl-gang`` (a host with 2 or 4 cards) runs
+phase 12 over NCCL instead, rank r on card r (four cards: dp2 x tp2,
+fsdp2 x tp2, dcn2 x tp2, dp4 and the MoE under ep2 x tp2), then the
+gang train worker on every card, from scratch and resumed; nothing
+else.
 
 Each kernel's log line gives its error, its time, the plain version's,
 the library call's and the bound, the rate it reached (TFLOP/s) and its
@@ -64,7 +82,7 @@ run with exit code 3.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; each
 entry's ``launches`` sums the main-path runs, dense and MoE (phases 3,
-4, 7, 9 and 11), and its ``design`` says how it computes (K1: a warp a
+4, 7, 9, 11 and 12, both ranks of 12(b)), and its ``design`` says how it computes (K1: a warp a
 row with 16-byte vector loads, launched through ctypes; K2-K4: wgmma
 with TMA-fed tiles in bf16, f32 FMA in f32).  The last line is ``{"ok":
 true, "device": {...}}``.  Without CUDA, or without the port beside it,
@@ -258,6 +276,28 @@ class ShapeLog:
     def busiest(self):
         """The shape with the most launches (ties: the largest)."""
         return max(self.shapes, key=lambda s: (self.shapes[s], s[:-1]))
+
+
+def install_shape_logs():
+    """A ShapeLog on each kernel's wrapper: {"K1": ..., "K4": ...}."""
+    from dcos_commons_tpu_torch.ops import attention, rmsnorm
+
+    logs = {
+        "K1": ShapeLog(rmsnorm, "rms_norm_kernel",
+                       lambda x, w, eps=None: (x.shape[0], x.shape[1],
+                                               x.dtype)),
+        "K2": ShapeLog(attention, "flash_fwd_kernel",
+                       lambda q, k, v, causal, lse=False: (
+                           q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                           bool(causal), q.dtype)),
+    }
+    for name, fn in (("K3", "flash_dq_kernel"), ("K4", "flash_dkv_kernel")):
+        logs[name] = ShapeLog(
+            attention, fn,
+            lambda q, k, v, do, lse, di, causal: (
+                q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                bool(causal), q.dtype))
+    return logs
 
 
 # -- phase 2: kernels against their plain versions -----------------------
@@ -916,26 +956,52 @@ def time_by_part(trace):
 
 
 def profile_step(run, top=10, moe=False):
-    """One ``run()`` under ``torch.profiler``: logs the ``top`` device
-    operations by device time, the port's kernels, the device time by
-    kind of work (``time_by_part``, from the exported trace; with
-    ``moe``, the MoE parts run in ranges and are split out first), and
-    the device's busy time against the step's host-clock time (with the
-    profiler on).  Fails when the profiler records no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Two ``run()``s under ``torch.profiler``, the first a warm-up it
+    discards, the second recorded: logs the ``top`` device operations by
+    device time, the port's kernels, the device time by kind of work
+    (``time_by_part``, from the exported trace; with ``moe``, the MoE
+    parts run in ranges and are split out first), and the device's busy
+    time against the step's host-clock time (with the profiler on).
+    Fails when the profiler records no device time, or when the trace
+    holds another number of a kernel's launches than its wrapper
+    counted in the recorded step.
 
+    The warm-up: a profiling session's first kernels may reach the
+    trace late or not at all.  Without it the MoE step, profiled after
+    the dense one in the same process, lost its first layer's two K1
+    and one K2 launches (counters K1 49, K2 24 a step; trace 47 and
+    23), while the dense step, the process's first session, kept
+    them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from dcos_commons_tpu_torch.ops import attention, rmsnorm
+
+    counters = {"K1": rmsnorm.rms_norm_kernel,
+                "K2": attention.flash_fwd_kernel,
+                "K3": attention.flash_dq_kernel,
+                "K4": attention.flash_dkv_kernel}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
         with MoEScopes() if moe else contextlib.nullcontext():
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+            before = {n: c.launches for n, c in counters.items()}
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            counted = {n: c.launches - before[n] for n, c in counters.items()}
+            prof.step()
+    # the ranges' own device spans (the MoE parts, the profiler's step)
+    # would count their kernels twice
     ops = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA
-           and e.self_device_time_total > 0 and not e.key.startswith("moe.")]
+           and e.self_device_time_total > 0
+           and not e.key.startswith(("moe.", "ProfilerStep"))]
     if not ops:
         raise AssertionError("torch.profiler recorded no device time")
     busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
@@ -956,8 +1022,25 @@ def profile_step(run, top=10, moe=False):
     path = os.path.join(ROOT, "build", "smoke", "profiled_step.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
-        split = time_by_part(json.load(f))
+        trace = json.load(f)
     os.remove(path)
+    split = time_by_part(trace)
+    # each kernel's launches in the trace, by the kernel's full name (K1
+    # has a template a vector width), against the wrappers' counters
+    traced, names = {n: 0 for n in counters}, {}
+    for e in trace["traceEvents"]:
+        if e.get("ph") != "X" or e.get("cat") != "kernel":
+            continue
+        for n, mark in (("K1", "rms_norm_rows"), ("K2", "flash_fwd_"),
+                        ("K3", "flash_dq_"), ("K4", "flash_dkv_")):
+            if mark in e["name"]:
+                traced[n] += 1
+                names[e["name"][:80]] = names.get(e["name"][:80], 0) + 1
+    log(f"  launches in the profiled step: counters {counted}, trace "
+        f"{traced}; by name {names}")
+    if traced != counted:
+        raise AssertionError(f"the trace holds launches {traced}, the "
+                             f"counters {counted}")
     log(f"  by kind ({sum(split.values()):.1f} ms attributed): " + ", ".join(
         f"{kind} {ms:.1f} ms ({ms / busy_ms:.1%})"
         for kind, ms in sorted(split.items(), key=lambda kv: -kv[1])))
@@ -966,7 +1049,7 @@ def profile_step(run, top=10, moe=False):
 def time_train_step(logs, config, batch, label, warmup=2, steps=5):
     """make_train_step of ``config`` at ``batch``: tokens/s, step ms and
     peak device memory (host clock around synchronised steps), then one
-    more step under the profiler."""
+    more step under the profiler (after its warm-up step)."""
     from dcos_commons_tpu_torch.models.transformer import (
         adamw, init_params, make_train_step,
     )
@@ -1001,7 +1084,8 @@ def time_train_step(logs, config, batch, label, warmup=2, steps=5):
                  moe=config.n_experts > 0)
     launches = {n: s.inner.launches for n, s in logs.items()}
     per_step = launches_per_step(config.n_layers, config.no_remat_layers)
-    if launches != {n: per_step[n] * (steps + 1) for n in logs}:
+    # the timed steps, the profiler's warm-up step and the profiled one
+    if launches != {n: per_step[n] * (steps + 2) for n in logs}:
         raise AssertionError(f"timed and profiled steps launched {launches}")
     del params, step
     torch.cuda.empty_cache()
@@ -1076,12 +1160,457 @@ def check_train_shapes(shapes, gen, checked):
     return errs
 
 
+# -- phase 12: the gang step ------------------------------------------------
+
+# phase 12(b)'s layouts: (label, extra env, MeshSpec fields)
+GANG_LAYOUTS = (
+    ("dense dp2", {}, {"dp": 2}),
+    ("dense tp2", {}, {"tp": 2}),
+    ("dense fsdp2", {}, {"fsdp": 2}),
+    ("MoE tp2", MOE_ENV, {"tp": 2}),
+    ("MoE ep2", MOE_ENV, {"ep": 2}),
+)
+# --nccl-gang on four cards: dp x tp, fsdp x tp, dcn x tp (the mesh
+# mesh_from_env derives for TPU_NUM_SLICES=2, TPU_CHIPS_PER_HOST=2),
+# pure dp, and the MoE under ep x tp
+NCCL4_LAYOUTS = (
+    ("dense dp2xtp2", {}, {"dp": 2, "tp": 2}),
+    ("dense fsdp2xtp2", {}, {"fsdp": 2, "tp": 2}),
+    ("dense dcn2xtp2", {}, {"dcn": 2, "tp": 2}),
+    ("dense dp4", {}, {"dp": 4}),
+    ("MoE ep2xtp2", MOE_ENV, {"ep": 2, "tp": 2}),
+)
+GANG_BATCH = 4            # the global batch of the gang phases
+GANG_LAYERS = 4           # the flagship's width, depth cut to 4
+GANG_STEPS = 2
+# bf16 gang against one process: the loss within 1e-2 relative at each
+# step (the gang's products run at other shapes and its partial sums
+# round to bf16 before they are added: a few bf16 ulps, 2^-8 each, in
+# the loss).  The params are held in f32 only (1e-5 where |g| >= 1e-6):
+# in bf16 a MoE token whose top-k choice sits within rounding of a tie
+# may route apart, which moves whole expert rows.  Their largest bf16
+# difference is logged.
+GANG_BF16_LOSS_RTOL = 1e-2
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def gang_config(extra, dtype, layers, seq):
+    from dcos_commons_tpu_torch.models import config_from_env
+
+    moe = {"moe_capacity_factor": MOE_CAPACITY} if extra else {}
+    return config_from_env(dict(TRAIN_ENV, **extra, N_LAYERS=str(layers),
+                                SEQ_LEN=str(seq)), dtype=dtype, **moe)
+
+
+def gang_batch(config, batch):
+    from dcos_commons_tpu_torch.utils import synthetic_tokens
+
+    return synthetic_tokens(batch, config.max_seq, config.vocab,
+                            torch.Generator(device="cuda").manual_seed(1))
+
+
+def one_process_steps(config, steps, batch, mesh=None, trace=False):
+    """``steps`` of make_train_step (on ``mesh``, or none) from the seed-0
+    init at the fixed batch: (losses, params, and with ``trace`` the
+    params' leaves after each step and the gradients each step applied)."""
+    from dcos_commons_tpu_torch.models.transformer import (
+        adamw, init_params, make_train_step,
+    )
+    from dcos_commons_tpu_torch.utils.tree import tree_leaves
+
+    params = init_params(config, seed=0, device="cuda")
+    optimizer = adamw(params, LR)
+    step = make_train_step(config, optimizer, mesh=mesh)
+    tokens, targets = gang_batch(config, batch)
+    losses, after, grads = [], [], []
+    if trace:
+        optimizer.register_step_pre_hook(lambda *_: grads.append(
+            [p.grad.detach().clone() for p in tree_leaves(params)]))
+    for _ in range(steps):
+        losses.append(float(step(params, tokens, targets)))
+        if trace:
+            after.append([p.detach().clone() for p in tree_leaves(params)])
+    return losses, params, (after, grads)
+
+
+def phase_gang_one(logs, flagship):
+    """Phase 12(a): a world of one over NCCL, through the port's
+    rendezvous: make_train_step(mesh=...) of the flagship (12 layers,
+    bf16, batch 12) against the no-mesh step, 2 steps each from the same
+    init, then 3 timed steps of each.  Returns the mesh runs' launches."""
+    import torch.distributed as dist
+
+    from dcos_commons_tpu_torch.parallel.distributed import init_gang
+    from dcos_commons_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from dcos_commons_tpu_torch.utils.tree import tree_leaves
+
+    init_gang(f"tcp://127.0.0.1:{free_port()}", 1, 0, "nccl", timeout_s=120)
+    try:
+        mesh = make_mesh(MeshSpec())
+        ref_losses, ref, _ = one_process_steps(flagship, GANG_STEPS,
+                                               TRAIN_BATCH)
+        for shape_log in logs.values():
+            shape_log.reset()
+        losses, params, _ = one_process_steps(flagship, GANG_STEPS,
+                                              TRAIN_BATCH, mesh)
+        torch.cuda.synchronize()
+        launches = {n: s.inner.launches for n, s in logs.items()}
+        exact = losses == ref_losses and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                              tree_leaves(ref)))
+        worst = max(((a.float() - b.float()).abs().max()
+                     / b.float().abs().max().clamp_min(1e-30)).item()
+                    for a, b in zip(tree_leaves(params), tree_leaves(ref)))
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                           ref_losses))
+        if not exact and (worst > 1e-6 or loss_rel > 1e-6):
+            raise AssertionError(
+                f"mesh of one vs no mesh: losses {losses} / {ref_losses}, "
+                f"params max rel diff {worst:.3e}")
+        del params, ref
+        torch.cuda.empty_cache()
+        per_step = launches_per_step(flagship.n_layers,
+                                     flagship.no_remat_layers)
+        want = {n: per_step[n] * GANG_STEPS for n in logs}
+        if launches != want:
+            raise AssertionError(f"12(a) launches {launches}, want {want}")
+        times = {}
+        for label, m in (("no mesh", None), ("mesh of one", mesh)):
+            from dcos_commons_tpu_torch.models.transformer import (
+                adamw, init_params, make_train_step,
+            )
+
+            params = init_params(flagship, seed=0, device="cuda")
+            step = make_train_step(flagship, adamw(params, LR), mesh=m)
+            tokens, targets = gang_batch(flagship, TRAIN_BATCH)
+            step(params, tokens, targets)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step(params, tokens, targets)
+            torch.cuda.synchronize()
+            times[label] = (time.perf_counter() - t0) / 3 * 1e3
+            del params, step
+            torch.cuda.empty_cache()
+        log(f"12(a) NCCL world of one, flagship [batch {TRAIN_BATCH}, seq "
+            f"{flagship.max_seq}] bf16, {flagship.n_layers} layers: "
+            f"{'bit for bit' if exact else f'max rel diff {worst:.3e}'} "
+            f"against the no-mesh step (losses {losses}); step "
+            f"{times['mesh of one']:.1f} ms on the mesh, "
+            f"{times['no mesh']:.1f} ms without; launches {launches}")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def compare_f32(gang, ref, gang_grads, grads):
+    """The f32 gang against one process, by step, from leaf lists of the
+    params after each step and of the gradients the step applied (the
+    gang's after its reduction, gathered to full size).  For each step:
+    ``grad_rel``, the largest relative Frobenius difference of a leaf's
+    gradient (a leaf both sides give a zero gradient counts 0), and
+    ``all``, the largest param difference.  After the first step also
+    ``apart``, the params more than 1e-5 + 1e-5 |p| apart among those
+    whose one-process gradient is at least 1e-6, and ``worst``, their
+    largest difference (with its leaf, value and gradient): AdamW's
+    first step moves a param by lr g / (|g| + 1e-8), steep in g near
+    1e-8, so a smaller gradient may land up to 2 lr apart.  Later steps'
+    params are held only to 2 lr a step: their gradients are taken at
+    params the first step moved apart, and ``grad_rel`` shows how far."""
+    out = []
+    for k in range(len(gang)):
+        grad_rel = 0.0
+        for a, b in zip(gang_grads[k], grads[k]):
+            apart_norm = (a - b).norm().item()
+            grad_rel = max(grad_rel, 0.0 if apart_norm == 0 else
+                           apart_norm / max(b.norm().item(), 1e-30))
+        entry = dict(grad_rel=grad_rel, all=max(
+            (a - b).abs().max().item() for a, b in zip(gang[k], ref[k])))
+        if k == 0:
+            apart, worst, where = 0, 0.0, None
+            for j, (a, b) in enumerate(zip(gang[0], ref[0])):
+                tight = grads[0][j].abs() >= 1e-6
+                diff = torch.where(tight, (a - b).abs(),
+                                   torch.zeros_like(b))
+                apart += int((diff > 1e-5 + 1e-5 * b.abs()).sum())
+                if diff.max().item() > worst:
+                    i = int(diff.argmax())
+                    worst, where = diff.max().item(), dict(
+                        leaf=j, p=b.flatten()[i].item(),
+                        g=grads[0][j].flatten()[i].item())
+            entry.update(apart=apart, worst=worst, where=where)
+        out.append(entry)
+    return out
+
+
+def gang_rank_main(rank, world, backend, init_method, cases, results):
+    """A rank of a gang phase: under gloo every rank on card 0 (phase
+    12(b)), under NCCL rank r on card r (``--nccl-gang``).  For each
+    case, GANG_STEPS sharded steps from the full seeded init on this
+    rank's rows, then one step with the collectives timed and one
+    without; rank 0 also runs the one-process step at the same global
+    batch and compares.  Puts (rank, report or None, error)."""
+    import traceback
+
+    try:
+        import torch.distributed as dist
+
+        from dcos_commons_tpu_torch.models.transformer import (
+            adamw, init_params, leaf_rules, make_train_step, shard_params,
+            unshard_params,
+        )
+        from dcos_commons_tpu_torch.parallel.distributed import init_gang
+        from dcos_commons_tpu_torch.parallel.mesh import (
+            BATCH_AXES, MeshSpec, make_mesh,
+        )
+        from dcos_commons_tpu_torch.parallel.sharding import (
+            timed_collectives, unshard,
+        )
+        from dcos_commons_tpu_torch.utils.tree import tree_leaves
+
+        torch.cuda.set_device(rank if backend == "nccl" else 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        init_gang(init_method, world, rank, backend, timeout_s=300)
+        logs = install_shape_logs()
+        report = []
+        for label, extra, fields, dtype, layers, seq in cases:
+            config = gang_config(extra, dtype, layers, seq)
+            mesh = make_mesh(MeshSpec(**fields))
+            params = shard_params(init_params(config, seed=0, device="cuda"),
+                                  config, mesh)
+            optimizer = adamw(params, LR)
+            step = make_train_step(config, optimizer, mesh=mesh)
+            f32 = dtype == torch.float32
+            applied = []
+            if f32:
+                # the gradients each f32 step applies, gathered to full
+                # size (every rank gathers: the hook runs in every step)
+                rules = leaf_rules(config)
+                hook = optimizer.register_step_pre_hook(
+                    lambda *_: applied.append([
+                        unshard(p.grad, d, mesh) for p, d in zip(
+                            tree_leaves(params), rules)]))
+            tokens, targets = gang_batch(config, GANG_BATCH)
+            n, i = mesh.size(BATCH_AXES), mesh.index(BATCH_AXES)
+            rows = slice(i * GANG_BATCH // n, (i + 1) * GANG_BATCH // n)
+            tokens, targets = tokens[rows], targets[rows]
+            torch.cuda.synchronize()
+            for shape_log in logs.values():
+                shape_log.reset()
+            losses, fulls = [], []
+            for k in range(GANG_STEPS):
+                losses.append(float(step(params, tokens, targets)))
+                if f32 or k == GANG_STEPS - 1:
+                    fulls.append(tree_leaves(unshard_params(params, config,
+                                                            mesh)))
+            if f32:
+                hook.remove()
+            torch.cuda.synchronize()
+            launches = {k: s.inner.launches for k, s in logs.items()}
+            shapes = {k: sorted(s.shapes, key=str) for k, s in logs.items()}
+            # the step's time, and its time in collectives (each one
+            # bracketed by synchronisations while timed)
+            dist.barrier()
+            t0 = time.perf_counter()
+            step(params, tokens, targets)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            dist.barrier()
+            with timed_collectives() as coll:
+                t0 = time.perf_counter()
+                step(params, tokens, targets)
+                torch.cuda.synchronize()
+                timed_ms = (time.perf_counter() - t0) * 1e3
+            del params, step
+            entry = dict(label=label, dtype=str(dtype), layers=layers,
+                         seq=seq, rank=rank, losses=losses,
+                         launches=launches, shapes=shapes, step_ms=step_ms,
+                         timed_ms=timed_ms,
+                         collective_ms=coll["seconds"] * 1e3,
+                         collectives=coll["calls"])
+            if rank == 0:
+                ref_losses, ref, (after, grads) = one_process_steps(
+                    config, GANG_STEPS, GANG_BATCH, trace=f32)
+                entry["ref_losses"] = ref_losses
+                entry["loss_rel"] = max(abs(a - b) / abs(b)
+                                        for a, b in zip(losses, ref_losses))
+                if f32:
+                    entry["steps"] = compare_f32(fulls, after, applied,
+                                                 grads)
+                else:
+                    entry["param_max_diff"] = max(
+                        (a.float() - b.detach().float()).abs().max().item()
+                        for a, b in zip(fulls[-1], tree_leaves(ref)))
+                del ref, after, grads
+            del fulls, applied
+            torch.cuda.empty_cache()
+            report.append(entry)
+            dist.barrier()
+        dist.destroy_process_group()
+        results.put((rank, report, None))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        results.put((rank, None, traceback.format_exc()))
+
+
+def phase_gang(tag, world, backend, layouts, deadline_s):
+    """A gang of ``world`` spawned processes at the flagship's width:
+    each of ``layouts`` in bf16 at GANG_LAYERS layers and seq 2048, then
+    in f32 (TF32 off) at 2 layers and seq 256.  Checks each against the
+    one-process step and the kernels' launches on each rank's rows and
+    h/tp heads; returns (launches by kernel summed over the ranks,
+    shapes).  Phase 12(b) is two processes on the one card over gloo."""
+    import multiprocessing
+
+    seq = int(TRAIN_ENV["SEQ_LEN"])
+    cases = [(label, extra, fields, dtype, layers, s)
+             for dtype, layers, s in ((torch.bfloat16, GANG_LAYERS, seq),
+                                      (torch.float32, 2, 256))
+             for label, extra, fields in layouts]
+    if backend == "nccl":
+        init_method = f"tcp://127.0.0.1:{free_port()}"
+    else:
+        store = os.path.join(ROOT, "build", "smoke", "gang_store")
+        if os.path.exists(store):
+            os.remove(store)
+        init_method = f"file://{store}"
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=gang_rank_main,
+                         args=(r, world, backend, init_method, cases,
+                               results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    reports = {}
+    try:
+        end = time.monotonic() + deadline_s
+        while len(reports) < world:
+            rank, report, error = results.get(
+                timeout=max(1.0, end - time.monotonic()))
+            if error is not None:
+                raise AssertionError(f"{tag} rank {rank} failed:\n{error}")
+            reports[rank] = report
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    launches = {n: 0 for n in ("K1", "K2", "K3", "K4")}
+    shapes = {n: set() for n in launches}
+    for runs in zip(*(reports[r] for r in range(world))):
+        r0 = runs[0]
+        label, f32 = r0["label"], r0["dtype"] == "torch.float32"
+        config = gang_config(MOE_ENV if "MoE" in label else {},
+                             torch.float32 if f32 else torch.bfloat16,
+                             r0["layers"], r0["seq"])
+        per_step = launches_per_step(config.n_layers,
+                                     config.no_remat_layers)
+        fields = next(f for lab, _, f in layouts if lab == label)
+        tp = fields.get("tp", 1)
+        rows = GANG_BATCH // (fields.get("dcn", 1) * fields.get("dp", 1)
+                              * fields.get("fsdp", 1))
+        heads = config.n_heads // tp
+        for r in runs:
+            want = {n: per_step[n] * GANG_STEPS for n in launches}
+            if r["launches"] != want:
+                raise AssertionError(f"{tag} {label} rank {r['rank']}: "
+                                     f"launches {r['launches']}, want {want}")
+            for n in ("K2", "K3", "K4"):
+                if {tuple(x)[0] for x in r["shapes"][n]} != {rows * heads}:
+                    raise AssertionError(
+                        f"{tag} {label}: {n} at {r['shapes'][n]}, want "
+                        f"{rows} rows x {heads} heads")
+            for n in launches:
+                launches[n] += r["launches"][n]
+                shapes[n].update(tuple(x) for x in r["shapes"][n])
+            if r["losses"] != r0["losses"]:
+                raise AssertionError(f"{tag} {label}: the ranks' losses "
+                                     "differ")
+        if f32:
+            first = r0["steps"][0]
+            ok = (r0["loss_rel"] <= 1e-5 and first["grad_rel"] <= 1e-5
+                  and first["apart"] == 0
+                  and all(st["all"] <= 2 * LR * (k + 1) * (1 + 1e-4)
+                          for k, st in enumerate(r0["steps"])))
+            tol = ("f32: loss 1e-5 rel at each step, the first step's "
+                   "gradient 1e-5 rel Frobenius a leaf, its params 1e-5 + "
+                   "1e-5 |p| where |g| >= 1e-6, 2 lr a step everywhere "
+                   f"(compare_f32); by step: {r0['steps']}")
+        else:
+            ok = r0["loss_rel"] <= GANG_BF16_LOSS_RTOL
+            tol = (f"bf16: loss {GANG_BF16_LOSS_RTOL} rel, params max diff "
+                   f"{r0['param_max_diff']:.3e} logged")
+        step_ms = max(r["step_ms"] for r in runs)
+        coll_ms = max(r["collective_ms"] for r in runs)
+        timed_ms = max(r["timed_ms"] for r in runs)
+        log(f"{tag} {label} {'f32' if f32 else 'bf16'} [{r0['layers']} "
+            f"layers, batch {GANG_BATCH}, seq {r0['seq']}]: losses "
+            f"{r0['losses']} vs one process {r0['ref_losses']} (rel "
+            f"{r0['loss_rel']:.3e}); {tol}; step {step_ms:.1f} ms; "
+            f"timed step {timed_ms:.1f} ms = collectives {coll_ms:.1f} ms "
+            f"({r0['collectives']} calls) + compute "
+            f"{timed_ms - coll_ms:.1f} ms; K2-K4 on {rows} x {heads} "
+            f"heads; launches a rank {r0['launches']}")
+        if not ok:
+            raise AssertionError(f"{tag} {label}: gang and one process "
+                                 "differ beyond the tolerance")
+    return launches, shapes
+
+
+def nccl_gang_main(kind, smi):
+    """``--nccl-gang``: the gang step over NCCL, one rank a card, on
+    every card of the host (2 or 4), against one process; then the gang
+    train worker on them, from scratch and resumed."""
+    from dcos_commons_tpu_torch.device import build_cuda
+    from dcos_commons_tpu_torch.frameworks.train_worker import train_gang
+
+    n = torch.cuda.device_count()
+    layouts = {2: GANG_LAYOUTS, 4: NCCL4_LAYOUTS}.get(n)
+    if layouts is None:
+        log(f"--nccl-gang runs on 2 or 4 cards, this host has {n}")
+        return 2
+    watchdog = Watchdog()
+    watchdog.phase("1 build", 400)
+    build_cuda()
+    os.makedirs(os.path.join(ROOT, "build", "smoke"), exist_ok=True)
+    watchdog.phase(f"12(c) NCCL gang of {n}", 900)
+    launches, _ = phase_gang(f"12(c) NCCL x{n}", n, "nccl", layouts, 840)
+    log(f"12(c) launches over the ranks {launches}")
+    watchdog.phase("12(c) gang train worker", 600)
+    ckpt = os.path.join(ROOT, "build", "smoke", "gang_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    env = dict(TRAIN_ENV, N_LAYERS="2", CHECKPOINT_DIR=ckpt,
+               SANDBOX=os.path.join(ROOT, "build", "smoke"))
+    for steps, start in ((2, 0), (3, 2)):
+        result = train_gang(dict(env, TRAIN_STEPS=str(steps)), n, log=log,
+                            deadline_s=540)
+        if result.start != start or result.checkpoint_errors or not all(
+                np.isfinite(list(result.losses.values()))):
+            raise AssertionError(f"gang train worker: {result}")
+        log(f"12(c) train worker, {n} ranks over NCCL, steps {start}.."
+            f"{steps - 1}: batch {result.batch}, losses {result.losses}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    watchdog.stop()
+    log(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": n}}), flush=True)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         log("CUDA is not available: chip_smoke needs one NVIDIA card")
         return 2
     from dcos_commons_tpu_torch.device import build_cuda
-    from dcos_commons_tpu_torch.ops import attention, rmsnorm
 
     t_start = time.monotonic()
     smi = subprocess.run(
@@ -1093,6 +1622,8 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--nccl-gang"]:
+        return nccl_gang_main(kind, smi)
 
     # phase 1: build every kernel from the checkout
     watchdog = Watchdog()
@@ -1103,21 +1634,7 @@ def main():
     log(f"build: {time.monotonic() - t0:.1f} s (nvcc, every csrc/*.cu)")
 
     # the main path's shapes, recorded as it runs
-    logs = {
-        "K1": ShapeLog(rmsnorm, "rms_norm_kernel",
-                       lambda x, w, eps=None: (x.shape[0], x.shape[1],
-                                               x.dtype)),
-        "K2": ShapeLog(attention, "flash_fwd_kernel",
-                       lambda q, k, v, causal, lse=False: (
-                           q.shape[0], q.shape[1], k.shape[1], q.shape[2],
-                           bool(causal), q.dtype)),
-    }
-    for name, fn in (("K3", "flash_dq_kernel"), ("K4", "flash_dkv_kernel")):
-        logs[name] = ShapeLog(
-            attention, fn,
-            lambda q, k, v, do, lse, di, causal: (
-                q.shape[0], q.shape[1], k.shape[1], q.shape[2],
-                bool(causal), q.dtype))
+    logs = install_shape_logs()
 
     # phase 2
     watchdog.phase("2 kernels", 180)
@@ -1218,10 +1735,20 @@ def main():
     moe_train_launches, moe_train_shapes = phase_train(
         logs, dict(TRAIN_ENV, **MOE_ENV), 0, (4, 6),
         lambda: time_train_step(logs, moe_config, MOE_BATCH, "MoE"))
+    # phase 12: the gang step.  (a) a world of one over NCCL at the
+    # flagship's full size; (b) two processes on the one card over gloo
+    watchdog.phase("12a NCCL world of one", 300)
+    gang_one_launches = phase_gang_one(logs, flagship)
+    for n, shapes in train_shapes.items():
+        shapes.update(logs[n].shapes)
+    watchdog.phase("12b two processes over gloo", 600)
+    gang_two_launches, gang_two_shapes = phase_gang(
+        "12(b)", 2, "gloo", GANG_LAYOUTS, 540)
     launches = {n: slot_launches[n] + paged_launches[n] + train_launches[n]
-                + moe_launches[n] + moe_train_launches[n] for n in logs}
+                + moe_launches[n] + moe_train_launches[n]
+                + gang_one_launches[n] + gang_two_launches[n] for n in logs}
     for n in logs:
-        train_shapes[n] |= moe_train_shapes[n]
+        train_shapes[n] |= moe_train_shapes[n] | gang_two_shapes[n]
 
     # phase 8, last: every kernel at every shape the train paths gave it.
     # The kernels line times each at the flagship training shape

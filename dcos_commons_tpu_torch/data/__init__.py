@@ -5,6 +5,7 @@ from dcos_commons_tpu_torch.data.loader import (
     DevicePrefetcher,
     TokenDataset,
     list_shards,
+    rank_rows,
     write_token_shard,
 )
 
@@ -12,5 +13,6 @@ __all__ = [
     "DevicePrefetcher",
     "TokenDataset",
     "list_shards",
+    "rank_rows",
     "write_token_shard",
 ]

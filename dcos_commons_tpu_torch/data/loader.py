@@ -143,14 +143,29 @@ class TokenDataset:
             step += 1
 
 
+def rank_rows(it, index: int, count: int):
+    """A rank's share of each host batch of ``it``: rows ``[index * n /
+    count, (index + 1) * n / count)`` of its n.  In a gang each host
+    reads ``batch / worker_count`` rows (``TokenDataset``'s shards are
+    the host's), and its ranks split them by their place among the
+    host's batch coordinates: what the JAX module's sharded placement
+    puts on each device of the host."""
+    for host_batch in it:
+        n = len(host_batch[0])
+        if n % count:
+            raise ValueError(f"{n} rows do not split over {count} ranks")
+        lo, hi = index * n // count, (index + 1) * n // count
+        yield tuple(a[lo:hi] for a in host_batch)
+
+
 class DevicePrefetcher:
     """Double-buffer host batches onto ``device``.
 
     Wraps any (tokens, targets) numpy iterator; a daemon thread stays
     ``depth`` batches ahead so the train step never waits on host IO.
     Batches arrive as int64 tensors on ``device`` (the port's indexing
-    dtype).  The sharded placement of the JAX module waits for the
-    multi-GPU train step (ROADMAP queue 1, item 8).
+    dtype).  In a gang, wrap the host stream in ``rank_rows`` first:
+    each rank places only its own rows.
     """
 
     def __init__(self, it, device, depth: int = 2):

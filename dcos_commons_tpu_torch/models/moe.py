@@ -23,9 +23,19 @@ f32 cumsum of 0/1 values.  Every op on the routing path is
 deterministic, so the recompute of a rematerialised layer routes as its
 forward did.
 
-Expert parallelism (``axis_name``, the ``ep`` all_to_all path) and the
-``ep`` sharding rules belong to the mesh and raise
-``NotImplementedError`` (ROADMAP queue 1, item 8).
+Expert parallelism comes two ways, as in the reference:
+
+- ``moe_ffn(axis_name="ep")``, the explicit path (the reference's
+  ``shard_map`` case): tokens are split over the ``ep`` ranks of the
+  current mesh (``with mesh:``), the router is replicated, each rank
+  holds ``n_experts / ep`` experts (``expert_shard_spec``), and the
+  expert slots travel ``[E, C, d] -> [E/ep, ep*C, d]`` and back by
+  ``all_to_all``; ``aux`` is averaged over ep;
+- ``moe_ffn(mesh=...)``, the train step's path, which follows the
+  reference's GSPMD semantics (``moe_sharding_rules``: experts over ep,
+  then fsdp and tp within each expert): the tokens are the same on
+  every ep rank, each rank dispatches to, computes and combines its own
+  experts, and the combined output is summed over ep.
 """
 
 from __future__ import annotations
@@ -37,10 +47,18 @@ import torch
 import torch.nn.functional as F
 
 from dcos_commons_tpu_torch.models.quantize import dequantize_weight as dq
+from dcos_commons_tpu_torch.parallel.mesh import Mesh, current_mesh
+from dcos_commons_tpu_torch.parallel.sharding import (
+    EP,
+    TP,
+    P,
+    all_to_all,
+    copy_to,
+    pmean,
+    reduce_from,
+)
 
 MoEParams = Dict[str, Any]
-_EP = ("expert parallelism over a mesh's 'ep' axis is not ported yet: "
-       "ROADMAP queue 1, item 8 (the multi-GPU train step)")
 
 
 @dataclass(frozen=True)
@@ -151,8 +169,11 @@ def _routing_sorted(config: MoEConfig, params: MoEParams, x: torch.Tensor,
 
 
 def _moe_sorted(config: MoEConfig, params: MoEParams, x: torch.Tensor,
-                capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """moe_ffn's body over the sorted dispatch (see _routing_sorted).
+                capacity: int, mesh: Optional[Mesh] = None,
+                ep_mesh: Optional[Mesh] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """moe_ffn's body over the sorted dispatch (see _routing_sorted);
+    ``mesh`` and ``ep_mesh`` as in ``_experts``.
 
     Both scatter-adds are ``index_add``, which sums with atomics on the
     card: a slot receives exactly one nonzero row (dropped entries are
@@ -165,13 +186,20 @@ def _moe_sorted(config: MoEConfig, params: MoEParams, x: torch.Tensor,
     xg = x.reshape(-1, t, d)
     g = xg.shape[0]
     slot, st, sg, keep, aux = _routing_sorted(config, params, xg, capacity)
+    # each ep rank reads the tokens and gates for its own experts
+    xg, sg = copy_to(xg, mesh, EP), copy_to(sg, mesh, EP)
     rows = xg.gather(1, st[..., None].expand(-1, -1, d)).to(dt)
     rows = rows * keep[..., None].to(dt)
     group = torch.arange(g, device=x.device)[:, None]
     expert_in = xg.new_zeros((g * e * capacity, d), dtype=dt).index_add(
         0, (group * e * capacity + slot).reshape(-1), rows.reshape(-1, d)
     ).reshape(g, e, capacity, d)
-    expert_out = _expert_ffn(config, params, expert_in)
+    first, last = _local_experts(config, mesh)
+    expert_out = _experts(config, params, expert_in[:, first:last], mesh,
+                          ep_mesh)
+    if last - first < e:
+        # the other ep ranks' experts contribute zeros here
+        expert_out = F.pad(expert_out, (0, 0, 0, 0, first, e - last))
     out_rows = expert_out.reshape(g, e * capacity, d).gather(
         1, slot[..., None].expand(-1, -1, d))
     weight = (sg * keep).float()[..., None]
@@ -179,21 +207,84 @@ def _moe_sorted(config: MoEConfig, params: MoEParams, x: torch.Tensor,
         0, (group * t + st).reshape(-1),
         (out_rows.float() * weight).reshape(-1, d),
     )
+    y = reduce_from(y, mesh, EP)
+    if ep_mesh is not None:
+        aux = pmean(aux, ep_mesh, EP)
     return y.to(x.dtype).reshape(x.shape), aux.reshape(lead)
 
 
-def _expert_ffn(config: MoEConfig, params: MoEParams, h: torch.Tensor
-                ) -> torch.Tensor:
+def _expert_ffn(config: MoEConfig, params: MoEParams, h: torch.Tensor,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
     """h [..., E, slots, d] -> [..., E, slots, d]: batched SwiGLU.
     Expert weights may be weight-only int8 (models/quantize.py): the
-    [E, d, f] layout contracts axis -2 like the dense path."""
+    [E, d, f] layout contracts axis -2 like the dense path.  With a
+    ``mesh`` the hidden width is split over tp (Megatron: the input
+    enters every tp rank, the down projection's partial sums are
+    all-reduced before the combine reads them)."""
     dt = config.dtype
-    h = h.to(dt)
+    h = copy_to(h.to(dt), mesh, TP)
     gate = F.silu(torch.einsum("...ecd,edf->...ecf", h,
                                dq(params["w_gate"], dt)))
     up = torch.einsum("...ecd,edf->...ecf", h, dq(params["w_up"], dt))
-    return torch.einsum("...ecf,efd->...ecd", gate * up,
-                        dq(params["w_down"], dt))
+    out = torch.einsum("...ecf,efd->...ecd", gate * up,
+                       dq(params["w_down"], dt))
+    return reduce_from(out, mesh, TP)
+
+
+def _local_experts(config: MoEConfig, mesh: Optional[Mesh]
+                   ) -> Tuple[int, int]:
+    """The first and one past the last expert an ep rank holds (all of
+    them without a mesh)."""
+    if mesh is None:
+        return 0, config.n_experts
+    ep = mesh.size(EP)
+    if config.n_experts % ep:
+        raise ValueError(
+            f"n_experts {config.n_experts} not divisible by ep={ep}"
+        )
+    e_local = config.n_experts // ep
+    first = mesh.index(EP) * e_local
+    return first, first + e_local
+
+
+def _experts(config: MoEConfig, params: MoEParams, expert_in: torch.Tensor,
+             mesh: Optional[Mesh] = None, ep_mesh: Optional[Mesh] = None
+             ) -> torch.Tensor:
+    """expert_in [..., E, C, d] -> expert_out [..., E, C, d] for the
+    experts this rank holds.
+
+    ``ep_mesh`` (the explicit path): the slots travel to the ranks that
+    hold their experts, ``[E, C, d] -> [E/ep, ep*C, d]`` (a rank's slots
+    for an expert in rank order), and back.  ``mesh`` (the train step):
+    ``expert_in`` holds this rank's experts only, their hidden width
+    split over tp."""
+    if ep_mesh is not None:
+        return _exchange_back(
+            _expert_ffn(config, params, _exchange(expert_in, ep_mesh)),
+            ep_mesh)
+    return _expert_ffn(config, params, expert_in, mesh)
+
+
+def _exchange(expert_in: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """[..., E, C, d] -> [..., E/ep, ep*C, d] by ``all_to_all`` over ep:
+    each rank receives every rank's slots for the experts it holds."""
+    *lead, e, c, d = expert_in.shape
+    ep = mesh.size(EP)
+    if e % ep:
+        raise ValueError(f"n_experts {e} not divisible by ep={ep}")
+    sends = expert_in.reshape(-1, ep, e // ep, c, d).transpose(0, 1)
+    got = all_to_all(sends, mesh, EP)              # [src, G, E/ep, C, d]
+    return got.permute(1, 2, 0, 3, 4).reshape(*lead, e // ep, ep * c, d)
+
+
+def _exchange_back(expert_out: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """[..., E/ep, ep*C, d] -> [..., E, C, d]: the reverse trip."""
+    *lead, e_local, slots, d = expert_out.shape
+    ep = mesh.size(EP)
+    c = slots // ep
+    sends = expert_out.reshape(-1, e_local, ep, c, d).permute(2, 0, 1, 3, 4)
+    got = all_to_all(sends, mesh, EP)              # [src, G, E/ep, C, d]
+    return got.transpose(0, 1).reshape(*lead, ep * e_local, c, d)
 
 
 def _dispatch(dispatch: torch.Tensor, x: torch.Tensor, dt) -> torch.Tensor:
@@ -218,34 +309,75 @@ def moe_ffn(
     axis_name: Optional[str] = None,
     capacity: Optional[int] = None,
     impl: str = "onehot",
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MoE FFN on x [..., tokens, d_model] -> (y like x, aux [...]), all
-    experts on this device.
+    """MoE FFN on x [..., tokens, d_model] -> (y like x, aux [...]).
+
+    Without ``axis_name`` or ``mesh``: all experts on this device.  With
+    ``axis_name="ep"`` (inside ``with mesh:``): x holds this rank's
+    tokens, and each rank holds ``n_experts / ep`` experts laid out by
+    ``expert_shard_spec``; the slots travel by ``all_to_all`` and
+    ``aux`` is averaged over ep.  With ``mesh`` (the train step, under
+    ``moe_sharding_rules``): x and the router are the same on every ep
+    and tp rank, ``params`` hold this rank's experts with their fsdp
+    dimension gathered and their hidden width split over tp; the routing
+    runs whole on every rank, each rank dispatches to, computes and
+    combines its own experts, and the output is summed over ep.  ``aux``
+    is then the whole routing's, the same on every rank.
 
     ``capacity`` overrides the factor-derived per-expert slot count;
     decode passes capacity = tokens so NO token is ever dropped.
     ``impl`` picks the dispatch: "onehot" or "sorted" (see the module
-    doc).  ``axis_name`` (expert parallelism) raises
-    ``NotImplementedError``."""
+    doc)."""
+    ep_mesh = None
     if axis_name is not None:
-        raise NotImplementedError(_EP)
+        if axis_name != "ep":
+            raise ValueError(f"expert parallelism runs over 'ep', not "
+                             f"{axis_name!r}")
+        ep_mesh = current_mesh()
+        if ep_mesh is None:
+            raise ValueError("moe_ffn(axis_name='ep') needs a mesh: call "
+                             "it inside `with mesh:`")
     capacity = (capacity if capacity is not None
                 else config.capacity(x.shape[-2]))
     if impl == "sorted":
-        return _moe_sorted(config, params, x, capacity)
+        return _moe_sorted(config, params, x, capacity, mesh, ep_mesh)
     dispatch, combine, aux = _routing(config, params, x, capacity)
+    first, last = _local_experts(config, mesh)
     dt = config.dtype
-    expert_out = _expert_ffn(config, params, _dispatch(dispatch, x, dt))
-    return _combine(combine, expert_out, dt).to(x.dtype), aux
+    # the routing's consumers on this rank see only its experts: the
+    # copies make the router's and the tokens' gradients whole again
+    x_in, combine = copy_to(x, mesh, EP), copy_to(combine, mesh, EP)
+    expert_in = _dispatch(dispatch[..., first:last, :], x_in, dt)
+    expert_out = _experts(config, params, expert_in, mesh, ep_mesh)
+    y = reduce_from(_combine(combine[..., first:last, :], expert_out, dt),
+                    mesh, EP)
+    if ep_mesh is not None:
+        aux = pmean(aux, ep_mesh, EP)
+    return y.to(x.dtype), aux
 
 
 def expert_shard_spec():
-    """The ``ep`` layout of the expert params: raises, it belongs to the
-    mesh (ROADMAP queue 1, item 8)."""
-    raise NotImplementedError(_EP)
+    """Per-dimension rules of the expert params for the explicit ep
+    path: experts over ep, the router replicated."""
+    return {
+        "router": P(None, None),
+        "w_gate": P("ep", None, None),
+        "w_up": P("ep", None, None),
+        "w_down": P("ep", None, None),
+    }
 
 
 def moe_sharding_rules(prefix: str = "", stacked: bool = False):
-    """The ``ep``/fsdp/tp layout of the MoE leaves: raises, it belongs
-    to the mesh (ROADMAP queue 1, item 8)."""
-    raise NotImplementedError(_EP)
+    """Param path -> per-dimension rule for the train step: experts over
+    ``ep``, then the scaling-book fsdp/tp split within each expert
+    (``stacked=True`` prepends the layer axis).  The router stays fully
+    replicated — routing logits are f32 and tiny, and every rank needs
+    them before dispatch."""
+    lead = (None,) if stacked else ()
+    return {
+        f"{prefix}router": P(*lead, None, None),
+        f"{prefix}w_gate": P(*lead, "ep", "fsdp", "tp"),
+        f"{prefix}w_up": P(*lead, "ep", "fsdp", "tp"),
+        f"{prefix}w_down": P(*lead, "ep", "tp", "fsdp"),
+    }

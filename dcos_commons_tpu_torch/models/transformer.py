@@ -1,5 +1,5 @@
 """The flagship decoder-only transformer LM (port of
-``dcos_commons_tpu/models/transformer.py``), single device.
+``dcos_commons_tpu/models/transformer.py``).
 
 Same configuration fields and defaults, same env contract, same param
 tree: ``embed [vocab, d]``, ``layers`` — a dict of per-layer tensors
@@ -25,16 +25,30 @@ experts (``models/moe.py``: an f32 router, per-expert SwiGLU, the
 switch load-balancing aux loss, which ``loss_fn`` adds as the reference
 does); the expert leaves sit in the same stacked tree.
 
+The multi-GPU step: ``sharding_rules`` are the reference's, entry for
+entry, as per-dimension rules (``parallel/sharding.py``), and
+``make_train_step(mesh=...)`` runs them on each rank's shard of the
+params and of the batch, with the collectives GSPMD would insert made
+explicit: tp splits heads and the FFN's hidden width Megatron-style
+(the norms' outputs enter every tp rank through ``copy_to``, ``wo``'s
+and ``w_down``'s partial sums are all-reduced) and the vocabulary of
+the tied embedding (a vocab-parallel lookup and cross entropy); fsdp
+stores a dimension of each big leaf split and gathers it per layer,
+inside the remat region, so the recompute gathers again; ep holds each
+rank's experts (``models/moe.py`` ``moe_ffn(mesh=...)``); the batch axes
+average the gradients.  Each rank computes the full seeded init and
+keeps its block (``shard_params``), so a gang starts from the
+single-device init bit for bit; AdamW runs on the blocks.
+
 Not in this slice, and raising ``NotImplementedError``: ring and
-Ulysses sequence parallelism (ROADMAP queue 1, "MoE and
-long-context"), a mesh and with it expert parallelism (queue 1, item 8,
-"Multi-GPU train step").
+Ulysses sequence parallelism and a mesh with ``sp`` or ``pp`` above 1
+(ROADMAP queue 1, "MoE and long-context").
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -45,11 +59,27 @@ from dcos_commons_tpu_torch.models.moe import (
     MoEConfig,
     init_moe_params,
     moe_ffn,
+    moe_sharding_rules,
 )
 from dcos_commons_tpu_torch.models.quantize import dequantize_weight as dq
 from dcos_commons_tpu_torch.ops.attention import flash_attention
 from dcos_commons_tpu_torch.ops.rmsnorm import rms_norm
+from dcos_commons_tpu_torch.parallel.mesh import Mesh
 from dcos_commons_tpu_torch.parallel.pipeline import split_microbatches
+from dcos_commons_tpu_torch.parallel.sharding import (
+    TP,
+    Dims,
+    P,
+    batch_mean,
+    copy_to,
+    gather_fsdp,
+    reduce_from,
+    reduce_gradients,
+    shard,
+    unshard,
+    vocab_parallel_embed,
+    vocab_parallel_nll,
+)
 from dcos_commons_tpu_torch.utils.tree import (
     tree_flatten,
     tree_leaves,
@@ -143,6 +173,29 @@ def check_supported(config: TransformerConfig) -> None:
         )
 
 
+def check_mesh(config: TransformerConfig, mesh: Mesh) -> None:
+    """Raise for a mesh the sharded step does not run: sequence or
+    pipeline parallelism (not ported), or a tp that does not split the
+    heads into whole blocks of each rank's own KV heads."""
+    spec = mesh.spec
+    if spec.sp > 1 or spec.pp > 1:
+        raise NotImplementedError(
+            f"a mesh with sp={spec.sp}, pp={spec.pp}: sequence and "
+            "pipeline parallelism are not ported yet: ROADMAP queue 1, "
+            "'MoE and long-context'"
+        )
+    if config.n_kv_heads % spec.tp or config.n_heads % spec.tp:
+        raise ValueError(
+            f"tp={spec.tp} must divide n_kv_heads={config.n_kv_heads} "
+            f"and n_heads={config.n_heads}: each tp rank holds whole KV "
+            "heads and the query heads that read them"
+        )
+    if config.n_experts > 0 and config.n_experts % spec.ep:
+        raise ValueError(
+            f"n_experts {config.n_experts} not divisible by ep={spec.ep}"
+        )
+
+
 def init_params(config: TransformerConfig, seed: int = 0,
                 device=None) -> Params:
     """Stacked-layer param tree, random from ``seed``, made on
@@ -198,6 +251,95 @@ def _moe_config(config: TransformerConfig) -> MoEConfig:
     )
 
 
+def sharding_rules(config: TransformerConfig) -> Dict[str, Dims]:
+    """Param path -> per-dimension rule (the reference's scaling-book
+    layout): heads/ffn over tp, the other big axis over fsdp; MoE expert
+    axes over ep."""
+    rules = {
+        "embed": P("tp", "fsdp"),
+        "layers/attn_norm": P(None, None),
+        "layers/wq": P(None, "fsdp", "tp"),
+        "layers/wk": P(None, "fsdp", "tp"),
+        "layers/wv": P(None, "fsdp", "tp"),
+        "layers/wo": P(None, "tp", "fsdp"),
+        "layers/mlp_norm": P(None, None),
+        "final_norm": P(None),
+    }
+    if config.n_experts > 0:
+        rules.update(moe_sharding_rules(prefix="layers/", stacked=True))
+    else:
+        rules.update({
+            "layers/w_gate": P(None, "fsdp", "tp"),
+            "layers/w_up": P(None, "fsdp", "tp"),
+            "layers/w_down": P(None, "tp", "fsdp"),
+        })
+    return rules
+
+
+def _path_tree(config: TransformerConfig) -> Params:
+    """The param tree's layout with each leaf's path as the leaf."""
+    tree: Params = {}
+    for path in sharding_rules(config):
+        *parents, name = path.split("/")
+        node = tree
+        for parent in parents:
+            node = node.setdefault(parent, {})
+        node[name] = path
+    return tree
+
+
+def param_shardings(config: TransformerConfig) -> Params:
+    """The param tree with each leaf's rule in its place (the
+    reference's tree of ``NamedSharding``s, without the mesh).  A rule
+    is a tuple, which ``tree_leaves`` would walk into: take leaves in
+    tree order from ``leaf_rules``."""
+    rules = sharding_rules(config)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {name: walk(sub) for name, sub in node.items()}
+        return rules[node]
+
+    return walk(_path_tree(config))
+
+
+def leaf_rules(config: TransformerConfig, train_state: bool = False
+               ) -> List[Dims]:
+    """The rule of every leaf of the param tree, in ``tree_leaves``
+    order; with ``train_state``, of every leaf of ``train_state``'s tree
+    (AdamW's moments laid out as their params, the step count
+    replicated: the reference's ``opt_leaf_sharding``)."""
+    rules = sharding_rules(config)
+    paths = _path_tree(config)
+    tree = paths if not train_state else {
+        "params": paths, "opt_state": ((None, paths, paths), (), ()),
+    }
+    # the count's None is an empty subtree to tree_leaves: put it back
+    leaves = [rules[p] for p in tree_leaves(tree)]
+    return [()] + leaves if train_state else leaves
+
+
+def shard_params(params: Params, config: TransformerConfig, mesh: Mesh
+                 ) -> Params:
+    """This rank's block of every leaf of a full param tree, as tensors
+    of its own (what ``device_put`` with the rule's ``NamedSharding``
+    leaves on one device)."""
+    leaves, structure = tree_flatten(params)
+    return tree_unflatten(structure, [
+        shard(t, dims, mesh) for t, dims in zip(leaves, leaf_rules(config))
+    ])
+
+
+def unshard_params(params: Params, config: TransformerConfig, mesh: Mesh
+                   ) -> Params:
+    """The full param tree from every rank's blocks (collective: every
+    rank calls it)."""
+    leaves, structure = tree_flatten(params)
+    return tree_unflatten(structure, [
+        unshard(t, dims, mesh) for t, dims in zip(leaves, leaf_rules(config))
+    ])
+
+
 def layer_params(layers: Params, i: int) -> Params:
     """Layer ``i``'s slice of the stacked tree (int8 leaves keep their
     ``{"q", "scale"}`` form)."""
@@ -206,6 +348,32 @@ def layer_params(layers: Params, i: int) -> Params:
                if isinstance(leaf, dict) else leaf[i])
         for name, leaf in layers.items()
     }
+
+
+class _ShardedLayer:
+    """Layer ``i`` of a rank's stacked blocks: a leaf is sliced and its
+    fsdp dimension all-gathered when first read (so a remat region
+    gathers only the leaves it uses, and its recompute gathers them
+    again)."""
+
+    def __init__(self, config: TransformerConfig, layers: Params, i: int,
+                 mesh: Mesh):
+        self.rules = sharding_rules(config)
+        self.layers, self.i, self.mesh = layers, i, mesh
+        self.cache: Dict[str, torch.Tensor] = {}
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        if name not in self.cache:
+            self.cache[name] = gather_fsdp(
+                self.layers[name][self.i], self.rules["layers/" + name][1:],
+                self.mesh)
+        return self.cache[name]
+
+
+def _layer(config: TransformerConfig, layers: Params, i: int,
+           mesh: Optional[Mesh]):
+    return (layer_params(layers, i) if mesh is None
+            else _ShardedLayer(config, layers, i, mesh))
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float
@@ -223,12 +391,14 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return rotated.to(x.dtype)
 
 
-def _qkv(config: TransformerConfig, layer, x, positions):
+def _qkv(config: TransformerConfig, layer, x, positions, mesh=None):
     """Norm, projections, RoPE and the GQA repeat: q, k, v in the
-    kernels' ``[b, heads, s, head_dim]`` layout."""
+    kernels' ``[b, heads, s, head_dim]`` layout (a tp rank's own heads
+    under a mesh: its block of the columns of wq, wk and wv)."""
     b, s, d = x.shape
-    h, kv, hd = config.n_heads, config.n_kv_heads, config.head_dim
-    normed = rms_norm(x, layer["attn_norm"])
+    tp = 1 if mesh is None else mesh.size(TP)
+    h, kv, hd = config.n_heads // tp, config.n_kv_heads // tp, config.head_dim
+    normed = copy_to(rms_norm(x, layer["attn_norm"]), mesh, TP)
     q = (normed @ dq(layer["wq"], x.dtype)).reshape(b, s, h, hd)
     k = (normed @ dq(layer["wk"], x.dtype)).reshape(b, s, kv, hd)
     v = (normed @ dq(layer["wv"], x.dtype)).reshape(b, s, kv, hd)
@@ -240,27 +410,32 @@ def _qkv(config: TransformerConfig, layer, x, positions):
     return tuple(t.transpose(1, 2) for t in (q, k, v))
 
 
-def _attn_residual(config: TransformerConfig, layer, x, attn):
+def _attn_residual(config: TransformerConfig, layer, x, attn, mesh=None):
     """The output projection of ``attn [b, heads, s, head_dim]`` onto
-    the residual stream."""
+    the residual stream (under a mesh, wo's rows of this rank's heads,
+    the partial sums all-reduced over tp)."""
     b, s, _ = x.shape
-    attn = attn.transpose(1, 2).reshape(b, s, config.n_heads * config.head_dim)
-    return x + attn @ dq(layer["wo"], x.dtype)
+    attn = attn.transpose(1, 2).reshape(b, s, attn.shape[1] * attn.shape[3])
+    return x + reduce_from(attn @ dq(layer["wo"], x.dtype), mesh, TP)
 
 
-def _attention_block(config: TransformerConfig, layer, x, positions):
-    attn = flash_attention(*_qkv(config, layer, x, positions), causal=True)
-    return _attn_residual(config, layer, x, attn)
+def _attention_block(config: TransformerConfig, layer, x, positions,
+                     mesh=None):
+    attn = flash_attention(*_qkv(config, layer, x, positions, mesh),
+                           causal=True)
+    return _attn_residual(config, layer, x, attn, mesh)
 
 
-def _mlp_block(layer, x):
-    normed = rms_norm(x, layer["mlp_norm"])
+def _mlp_block(layer, x, mesh=None):
+    normed = copy_to(rms_norm(x, layer["mlp_norm"]), mesh, TP)
     gate = F.silu(normed @ dq(layer["w_gate"], x.dtype))
     up = normed @ dq(layer["w_up"], x.dtype)
-    return x + (gate * up) @ dq(layer["w_down"], x.dtype)
+    return x + reduce_from((gate * up) @ dq(layer["w_down"], x.dtype), mesh,
+                           TP)
 
 
-def _ffn_block(config: TransformerConfig, layer, x, decode: bool = False):
+def _ffn_block(config: TransformerConfig, layer, x, decode: bool = False,
+               mesh=None):
     """The per-layer FFN: dense SwiGLU or MoE.  Returns (x, aux): the
     MoE aux loss, the mean over routing groups (0.0 when dense).
 
@@ -271,26 +446,26 @@ def _ffn_block(config: TransformerConfig, layer, x, decode: bool = False):
     token, and drop-free routing is what makes cached decode equal a
     full forward."""
     if config.n_experts <= 0:
-        return _mlp_block(layer, x), 0.0
+        return _mlp_block(layer, x, mesh), 0.0
     b, s, d = x.shape
     normed = rms_norm(x, layer["mlp_norm"])
     gs = config.moe_group_size
     group = s if s <= gs else (gs if s % gs == 0 else s)
     moe_params = {key: layer[key]
                   for key in ("router", "w_gate", "w_up", "w_down")}
-    y, aux = moe_ffn(
-        _moe_config(config), moe_params,
-        normed.reshape(b * s // group, group, d),
-        capacity=group if decode else None, impl=config.moe_impl,
-    )
+    tokens = normed.reshape(b * s // group, group, d)
+    capacity = group if decode else None
+    y, aux = moe_ffn(_moe_config(config), moe_params, tokens,
+                     capacity=capacity, impl=config.moe_impl, mesh=mesh)
     return x + y.reshape(b, s, d), aux.mean()
 
 
-def _layer_fn(config: TransformerConfig, layers, i: int, x, positions):
+def _layer_fn(config: TransformerConfig, layers, i: int, x, positions,
+              mesh=None):
     """One layer: (x, the FFN's aux)."""
-    layer = layer_params(layers, i)
-    x = _attention_block(config, layer, x, positions)
-    return _ffn_block(config, layer, x)
+    layer = _layer(config, layers, i, mesh)
+    x = _attention_block(config, layer, x, positions, mesh)
+    return _ffn_block(config, layer, x, mesh=mesh)
 
 
 def _checkpointed(fn, *args):
@@ -302,7 +477,7 @@ def _checkpointed(fn, *args):
 
 
 def _save_attn_layer(config: TransformerConfig, layers, i: int, x,
-                     positions):
+                     positions, mesh=None):
     """One layer under ``remat_policy="save-attn"``: the checkpointed
     region is split around attention, so the attention's output and
     the flash kernel's own residuals (q, k, v, o, lse) are kept and the
@@ -310,18 +485,21 @@ def _save_attn_layer(config: TransformerConfig, layers, i: int, x,
     in backward.  The flash forward never re-runs."""
 
     def qkv(x):
-        return _qkv(config, layer_params(layers, i), x, positions)
+        return _qkv(config, _layer(config, layers, i, mesh), x, positions,
+                    mesh)
 
     def rest(x, attn):
-        layer = layer_params(layers, i)
-        return _ffn_block(config, layer, _attn_residual(config, layer, x,
-                                                        attn))
+        layer = _layer(config, layers, i, mesh)
+        return _ffn_block(config, layer,
+                          _attn_residual(config, layer, x, attn, mesh),
+                          mesh=mesh)
 
     attn = flash_attention(*_checkpointed(qkv, x), causal=True)
     return _checkpointed(rest, x, attn)
 
 
-def _layer_scan(config: TransformerConfig, layers, x, positions):
+def _layer_scan(config: TransformerConfig, layers, x, positions,
+                mesh=None):
     """Run x through the stack of layers: (x, the aux summed over
     layers).
 
@@ -340,27 +518,39 @@ def _layer_scan(config: TransformerConfig, layers, x, positions):
     aux_total = 0.0
     for i in range(n_layers):
         if not remat or i >= first_stored:
-            x, aux = _layer_fn(config, layers, i, x, positions)
+            x, aux = _layer_fn(config, layers, i, x, positions, mesh)
         elif config.remat_policy == "save-attn":
-            x, aux = _save_attn_layer(config, layers, i, x, positions)
+            x, aux = _save_attn_layer(config, layers, i, x, positions, mesh)
         else:
             x, aux = _checkpointed(
-                lambda x, i=i: _layer_fn(config, layers, i, x, positions), x
+                lambda x, i=i: _layer_fn(config, layers, i, x, positions,
+                                         mesh), x
             )
         aux_total = aux_total + aux
     return x, aux_total
 
 
-def _logits(config: TransformerConfig, params: Params, x: torch.Tensor
-            ) -> torch.Tensor:
-    """Final norm and the tied head, in f32."""
-    x = rms_norm(x, params["final_norm"])
-    return x.float() @ params["embed"].float().T
+def _logits(config: TransformerConfig, params: Params, x: torch.Tensor,
+            mesh=None, embed=None) -> torch.Tensor:
+    """Final norm and the tied head, in f32.  Under a mesh ``embed`` is
+    this rank's block of the vocabulary (fsdp gathered), and so are the
+    logits."""
+    x = copy_to(rms_norm(x, params["final_norm"]), mesh, TP)
+    embed = params["embed"] if embed is None else embed
+    return x.float() @ embed.float().T
 
 
-def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def _nll(logits: torch.Tensor, targets: torch.Tensor, mesh=None
+         ) -> torch.Tensor:
+    if mesh is not None and mesh.size(TP) > 1:
+        return vocab_parallel_nll(logits, targets, mesh)
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(-1, targets.long()[..., None])[..., 0]
+
+
+def _embed_block(params: Params, mesh: Mesh) -> torch.Tensor:
+    """This rank's vocabulary rows of the embedding, fsdp gathered."""
+    return gather_fsdp(params["embed"], P("tp", "fsdp"), mesh)
 
 
 def _trunk(
@@ -368,15 +558,24 @@ def _trunk(
     params: Params,
     tokens: torch.Tensor,
     positions: Optional[torch.Tensor] = None,
+    mesh=None,
+    embed=None,
 ):
     """tokens [b, s] -> (final hidden states [b, s, d], MoE aux summed
-    over layers; 0.0 when dense)."""
+    over layers; 0.0 when dense).  Under a mesh, ``embed`` is
+    ``_embed_block``'s and the lookup is vocab-parallel over tp."""
     check_supported(config)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = params["embed"][tokens].to(config.dtype)
-    return _layer_scan(config, params["layers"], x, positions)
+    if mesh is None:
+        x = params["embed"][tokens]
+    elif mesh.size(TP) > 1:
+        x = vocab_parallel_embed(embed, tokens, mesh)
+    else:
+        x = embed[tokens]
+    return _layer_scan(config, params["layers"], x.to(config.dtype),
+                       positions, mesh)
 
 
 def forward(
@@ -395,20 +594,25 @@ def _nll_mean(
     params: Params,
     x: torch.Tensor,
     targets: torch.Tensor,
+    mesh=None,
+    embed=None,
 ) -> torch.Tensor:
     """Mean NLL over [b, s] positions from final hidden states.
 
     With ``loss_chunk`` set, walks the sequence in chunks so only
     [b, chunk, vocab] f32 logits are ever live; each chunk is
     checkpointed, so the backward recomputes its logits instead of
-    saving them."""
+    saving them.  Under a mesh the logits of a chunk are this rank's
+    block of the vocabulary, and ``_nll`` reduces over tp."""
     b, s, _ = x.shape
     chunk = config.loss_chunk
     if chunk <= 0 or s % chunk != 0 or s == chunk:
-        return _nll(_logits(config, params, x), targets).mean()
+        return _nll(_logits(config, params, x, mesh, embed), targets,
+                    mesh).mean()
 
     def chunk_sum(xc, tc):
-        return _nll(_logits(config, params, xc), tc).sum()
+        return _nll(_logits(config, params, xc, mesh, embed), tc,
+                    mesh).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(0, s, chunk):
@@ -422,10 +626,14 @@ def _nll_mean(
 
 def loss_fn(
     config: TransformerConfig, params: Params, tokens: torch.Tensor,
-    targets: torch.Tensor,
+    targets: torch.Tensor, mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
-    x, aux = _trunk(config, params, tokens)
-    loss = _nll_mean(config, params, x, targets)
+    """Mean NLL (plus the MoE aux term).  Under a mesh: ``params`` are
+    this rank's blocks and ``tokens``/``targets`` its rows, and the loss
+    is the mean over its rows, the same on every tp and ep rank."""
+    embed = None if mesh is None else _embed_block(params, mesh)
+    x, aux = _trunk(config, params, tokens, mesh=mesh, embed=embed)
+    loss = _nll_mean(config, params, x, targets, mesh, embed)
     if config.n_experts > 0:
         # switch-transformer load-balancing term, averaged per layer
         loss = loss + config.moe_aux_weight * aux / config.n_layers
@@ -518,9 +726,11 @@ def load_train_state(params: Params, optimizer: torch.optim.AdamW,
 def make_train_step(
     config: TransformerConfig,
     optimizer: torch.optim.Optimizer,
+    mesh: Optional[Mesh] = None,
     grad_accum: int = 1,
 ) -> Callable[[Params, torch.Tensor, torch.Tensor], torch.Tensor]:
-    """Build a (params, tokens, targets) -> loss step on one device.
+    """Build a (params, tokens, targets) -> loss step, on one device or,
+    with a ``mesh``, on this rank of a gang.
 
     The params (the optimizer's own leaves) and the optimizer state are
     updated IN PLACE: the step is the counterpart of the JAX package's
@@ -533,12 +743,25 @@ def make_train_step(
     ``(sum / k).to(p.dtype)`` in ONE optimizer update; the loss is the
     mean of the microbatch losses.  A batch that does not split evenly
     raises ``ValueError``.  Remat (``config.remat``) composes per
-    microbatch."""
+    microbatch.
+
+    With a ``mesh`` every rank calls the step together: ``params`` (and
+    the optimizer's leaves) are this rank's blocks (``shard_params``),
+    ``tokens``/``targets`` its rows of the global batch (rows
+    ``[i * B/n, (i + 1) * B/n)`` for its index i of n over
+    ``BATCH_AXES``).  The gradients of the global mean loss come back on
+    each rank's blocks (``reduce_gradients``), AdamW steps the blocks,
+    and the returned loss is the global batch's.  A mesh whose axes are
+    all 1 runs exactly the single-device step."""
     check_supported(config)
     grad_accum = max(1, int(grad_accum))
+    rules = None
+    if mesh is not None:
+        check_mesh(config, mesh)
+        rules = leaf_rules(config)
 
     def grads_of(params, leaves, tokens, targets):
-        loss = loss_fn(config, params, tokens, targets)
+        loss = loss_fn(config, params, tokens, targets, mesh)
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
     def step(params, tokens, targets):
@@ -561,6 +784,9 @@ def make_train_step(
             grads = [(g / grad_accum).to(p.dtype)
                      for p, g in zip(leaves, grad_sum)]
             loss = loss / grad_accum
+        if mesh is not None:
+            grads = reduce_gradients(list(grads), rules, mesh)
+            loss = batch_mean(loss, mesh)
         for p, g in zip(leaves, grads):
             p.grad = g
         optimizer.step()

@@ -1,0 +1,347 @@
+"""The port's layout of a sharded step: per-dimension rules, a rank's
+block of a full tensor, and the collectives of the forward and the
+backward as ``torch.autograd.Function``s.
+
+The JAX package has no one-file counterpart: there a param's
+``PartitionSpec`` is all the model says, and GSPMD inserts the gathers,
+reductions and reduce-scatters.  Here each is explicit, placed where
+Megatron-LM places it, and small enough that ``torch.autograd.grad`` in
+``make_train_step`` stays as it is:
+
+- a rule is a tuple with one entry a dimension, each entry the tuple of
+  mesh axes that split that dimension (``P("tp", "fsdp")`` is
+  ``(("tp",), ("fsdp",))``), which is a ``PartitionSpec``'s meaning;
+- ``copy_to`` (identity forward, all-reduce backward) enters a region
+  where each rank of an axis computes on its own shard: the input of
+  every column-parallel product over tp, the expert input over ep;
+- ``reduce_from`` (all-reduce forward, identity backward) leaves it:
+  the row-parallel product's partial sums, the vocab-parallel lookup,
+  the expert outputs of the other ep ranks;
+- ``gather`` (all-gather forward, reduce-scatter backward) is fsdp's
+  per-layer gather of a stored shard;
+- ``all_to_all`` and ``pmean`` (forward and backward alike) are the
+  explicit ep path of ``moe_ffn(axis_name=...)``, where each
+  rank's loss counts on its own, as in ``shard_map``;
+- ``vocab_parallel_nll`` is the cross entropy of logits split over tp.
+
+So a param that every rank of an axis holds whole gets the same, whole
+gradient on each of them, and only the batch axes (``dcn``, ``dp``,
+``fsdp``) are left to reduce after the backward
+(``reduce_gradients``).  Every collective of a group of one rank is
+skipped, on every rank alike.
+
+``timed_collectives()`` adds up the host time spent in the collectives
+(each bracketed by device synchronisations while it is on).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from dcos_commons_tpu_torch.parallel.mesh import BATCH_AXES, Mesh
+
+Dims = Tuple[Tuple[str, ...], ...]
+TP = ("tp",)
+EP = ("ep",)
+FSDP = ("fsdp",)
+
+
+def P(*entries) -> Dims:
+    """A rule in ``PartitionSpec`` notation: each entry None, an axis
+    name or a tuple of axis names."""
+    out = []
+    for e in entries:
+        if e is None:
+            out.append(())
+        elif isinstance(e, str):
+            out.append((e,))
+        else:
+            out.append(tuple(e))
+    return tuple(out)
+
+
+# -- collective timing ------------------------------------------------------
+
+
+class _Clock:
+    enabled = False
+    seconds = 0.0
+    calls = 0
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """While on, every collective of this module waits for the device
+    before and after it and adds its host time to the yielded stats
+    (``seconds``, ``calls``)."""
+    _Clock.enabled, _Clock.seconds, _Clock.calls = True, 0.0, 0
+    stats: Dict[str, float] = {}
+    try:
+        yield stats
+    finally:
+        _Clock.enabled = False
+        stats.update(seconds=_Clock.seconds, calls=_Clock.calls)
+
+
+def _sync(t: torch.Tensor) -> None:
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def _collective(fn, t: torch.Tensor, *args, **kw) -> None:
+    if not _Clock.enabled:
+        fn(*args, **kw)
+        return
+    _sync(t)
+    t0 = time.perf_counter()
+    fn(*args, **kw)
+    _sync(t)
+    _Clock.seconds += time.perf_counter() - t0
+    _Clock.calls += 1
+
+
+def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """In place over ``group`` (nothing for None); returns ``t``."""
+    if group is not None:
+        _collective(dist.all_reduce, t, t, op=op, group=group)
+    return t
+
+
+def _gather_dim(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    moved = t.movedim(dim, 0).contiguous()
+    out = moved.new_empty((n * moved.shape[0],) + tuple(moved.shape[1:]))
+    _collective(dist.all_gather_into_tensor, out, out, moved, group=group)
+    return out.movedim(0, dim)
+
+
+def _scatter_dim(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    moved = t.movedim(dim, 0).contiguous()
+    out = moved.new_empty((moved.shape[0] // n,) + tuple(moved.shape[1:]))
+    _collective(dist.reduce_scatter_tensor, out, out, moved,
+                op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim)
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    _collective(dist.all_to_all_single, out, out, t, group=group)
+    return out
+
+
+# -- autograd collectives ---------------------------------------------------
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return _gather_dim(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_dim(g, ctx.dim, ctx.group, ctx.n), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def copy_to(x: torch.Tensor, mesh: Optional[Mesh], axes: Sequence[str]
+            ) -> torch.Tensor:
+    """Identity forward, all-reduce of the gradient over ``axes``."""
+    group = None if mesh is None else mesh.group(axes)
+    return x if group is None else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, mesh: Optional[Mesh],
+                axes: Sequence[str]) -> torch.Tensor:
+    """All-reduce (sum) forward over ``axes``, identity backward."""
+    group = None if mesh is None else mesh.group(axes)
+    return x if group is None else _ReduceFrom.apply(x, group)
+
+
+def pmean(x: torch.Tensor, mesh: Optional[Mesh], axes: Sequence[str]
+          ) -> torch.Tensor:
+    """``lax.pmean``: the mean over ``axes``, forward and backward alike,
+    for values each rank's own loss reads (the explicit ep path)."""
+    group = None if mesh is None else mesh.group(axes)
+    return x if group is None else _Psum.apply(x, group) / mesh.size(axes)
+
+
+def gather(x: torch.Tensor, dim: int, mesh: Optional[Mesh],
+           axes: Sequence[str]) -> torch.Tensor:
+    """All-gather of ``dim`` over ``axes`` (rank order), reduce-scatter
+    (sum) of the gradient."""
+    group = None if mesh is None else mesh.group(axes)
+    if group is None:
+        return x
+    return _Gather.apply(x, dim, group, mesh.size(axes))
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]
+               ) -> torch.Tensor:
+    """``all_to_all_single`` over ``axes``: dimension 0 in equal chunks,
+    chunk j to rank j, the received chunks concatenated in rank order.
+    Its gradient takes the same trip back."""
+    group = mesh.group(axes)
+    return x if group is None else _AllToAll.apply(x, group)
+
+
+def gather_fsdp(t: torch.Tensor, dims: Dims, mesh: Optional[Mesh]
+                ) -> torch.Tensor:
+    """A stored fsdp shard gathered to the size a rank computes with
+    (its other axes stay split)."""
+    for d, axes in enumerate(dims):
+        if "fsdp" in axes:
+            t = gather(t, d, mesh, FSDP)
+    return t
+
+
+def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor,
+                       mesh: Mesh) -> torch.Tensor:
+    """Negative log-likelihood of ``targets`` from f32 logits whose last
+    dimension is this rank's block of the vocabulary (tp): the max and
+    the sum of exponentials all-reduced over tp, the target's logit
+    taken from the rank that holds it."""
+    group = mesh.group(TP)
+    v_local = logits.shape[-1]
+    with torch.no_grad():
+        top = all_reduce(logits.max(-1, keepdim=True).values.contiguous(),
+                         group, dist.ReduceOp.MAX)
+    shifted = logits - top
+    sumexp = reduce_from(shifted.exp().sum(-1), mesh, TP)
+    local = targets.long() - mesh.index(TP) * v_local
+    inside = (local >= 0) & (local < v_local)
+    picked = shifted.gather(-1, local.clamp(0, v_local - 1)[..., None])[..., 0]
+    target = reduce_from(picked * inside, mesh, TP)
+    return torch.log(sumexp) - target
+
+
+def vocab_parallel_embed(embed: torch.Tensor, tokens: torch.Tensor,
+                         mesh: Mesh) -> torch.Tensor:
+    """``embed[tokens]`` where ``embed`` holds this rank's block of the
+    vocabulary rows (tp): the rows it holds, zeros elsewhere, summed
+    over tp."""
+    v_local = embed.shape[0]
+    local = tokens - mesh.index(TP) * v_local
+    inside = (local >= 0) & (local < v_local)
+    rows = embed[local.clamp(0, v_local - 1)] * inside[..., None].to(
+        embed.dtype)
+    return reduce_from(rows, mesh, TP)
+
+
+# -- a rank's block of a full tensor -------------------------------------------
+
+
+def block_slices(shape: Sequence[int], dims: Dims, mesh: Mesh
+                 ) -> Tuple[slice, ...]:
+    """This rank's block of a tensor of ``shape`` laid out by ``dims``."""
+    if len(dims) != len(shape):
+        raise ValueError(f"rule {dims} for a tensor of shape {tuple(shape)}")
+    out = []
+    for size, axes in zip(shape, dims):
+        n = mesh.size(axes)
+        if size % n:
+            raise ValueError(
+                f"dimension {size} does not split over {axes} ({n} ranks)"
+            )
+        i = mesh.index(axes)
+        out.append(slice(i * size // n, (i + 1) * size // n))
+    return tuple(out)
+
+
+def shard(full: Any, dims: Dims, mesh: Mesh) -> Any:
+    """This rank's block of ``full`` (a tensor or a numpy array), as a
+    contiguous copy of its own."""
+    part = full[block_slices(full.shape, dims, mesh)]
+    if isinstance(part, torch.Tensor):
+        return part.contiguous().clone()
+    return np.array(part)
+
+
+def unshard(t: torch.Tensor, dims: Dims, mesh: Mesh) -> torch.Tensor:
+    """The full tensor from every rank's block (no autograd), in memory
+    of its own: each split dimension all-gathered over its axes, and a
+    copy where none is split, which the step's in-place update of ``t``
+    does not reach."""
+    full = t.detach()
+    for d, axes in enumerate(dims):
+        group = mesh.group(axes)
+        if group is not None:
+            full = _gather_dim(full, d, group, mesh.size(axes))
+    return (full.contiguous() if full.data_ptr() != t.data_ptr()
+            else full.clone())
+
+
+# -- after the backward ---------------------------------------------------------
+
+
+def reduce_gradients(grads: List[torch.Tensor], dims: List[Dims],
+                     mesh: Mesh) -> List[torch.Tensor]:
+    """The mean over the batch axes of each rank's local gradients.  A
+    param's fsdp reduce-scatter has already summed over fsdp, so its
+    gradient is summed over ``dcn`` and ``dp`` only; every other
+    param's over all three.  Over tp and ep nothing is left to do (see
+    the module doc)."""
+    n = mesh.size(BATCH_AXES)
+    out = []
+    for g, d in zip(grads, dims):
+        axes = ("dcn", "dp") if any("fsdp" in a for a in d) else BATCH_AXES
+        g = all_reduce(g.contiguous(), mesh.group(axes))
+        out.append(g / n if n > 1 else g)
+    return out
+
+
+def batch_mean(value: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """A per-rank mean over local rows (a 0-d tensor) as the mean over
+    the global batch: the batch shards are equal."""
+    group = mesh.group(BATCH_AXES)
+    if group is None:
+        return value
+    return all_reduce(value.detach().clone(), group) / mesh.size(BATCH_AXES)

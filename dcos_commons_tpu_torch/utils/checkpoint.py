@@ -15,9 +15,14 @@ The file format is the JAX package's, leaf for leaf: leaves are keyed
 them as ``jax.tree.flatten`` does (sorted dict keys).  So a checkpoint
 written by the JAX train worker restores into the port bit for bit,
 and the reverse holds too (the train state's layout is
-``models.transformer.adamw_state``'s).  One process writes: the
-multi-host gather of the JAX module waits for the multi-GPU train step
-(ROADMAP queue 1, item 8).
+``models.transformer.adamw_state``'s).
+
+A gang (``mesh=`` and each leaf's rule, ``rules=``) saves as the JAX
+module's multi-host save does: every rank calls, each leaf is gathered
+to its full size (a collective, in program order with the step's), and
+only rank 0 writes, in the same file format, so a gang's checkpoint
+restores in the single-device port and in the JAX package bit for bit.
+A gang restore reads the full leaves and keeps each rank's block.
 
 Writer-incarnation fencing (ADVICE round 5): recovery can relaunch a
 trainer while its superseded predecessor still has one save in
@@ -50,6 +55,9 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from dcos_commons_tpu_torch.parallel.distributed import broadcast_int
+from dcos_commons_tpu_torch.parallel.mesh import Mesh
+from dcos_commons_tpu_torch.parallel.sharding import Dims, shard, unshard
 from dcos_commons_tpu_torch.utils.tree import tree_flatten, tree_unflatten
 
 # legacy names (step_<digits>.npz) parse as incarnation 0: every
@@ -127,11 +135,32 @@ def _host_array(leaf: Any) -> Tuple[np.ndarray, Optional[str]]:
     return arr, None
 
 
+def _gathered(leaves: List[Any], mesh: Optional[Mesh],
+              rules: Optional[List[Dims]]) -> List[Any]:
+    """Each tensor leaf at its full size, a copy of its own (collective
+    under a mesh: every rank calls, in leaf order)."""
+    out = []
+    for i, leaf in enumerate(leaves):
+        if not isinstance(leaf, torch.Tensor):
+            out.append(np.copy(np.asarray(leaf)))
+            continue
+        if mesh is not None and rules is not None:
+            out.append(unshard(leaf, rules[i], mesh))
+        else:
+            out.append(leaf.detach().clone())
+    return out
+
+
 def save_checkpoint(
     directory: str, step: int, tree: Any, keep: int = 0,
-    incarnation: Optional[int] = None,
+    incarnation: Optional[int] = None, mesh: Optional[Mesh] = None,
+    rules: Optional[List[Dims]] = None,
 ) -> str:
     """Atomic save of a pytree; ``step`` = next step to run on resume.
+
+    In a gang (``mesh``, with ``rules`` giving each leaf's layout in
+    ``tree_flatten`` order) every rank calls: each leaf is gathered to
+    its full size, and only rank 0 writes (the others return "").
 
     ``keep`` > 0 prunes AFTER the new file is durably in place (write
     + fsync + rename first, delete after — a crash mid-save can
@@ -155,6 +184,10 @@ def save_checkpoint(
     unfenced behavior for single-writer tools.
     """
     leaves, _ = tree_flatten(tree)
+    if mesh is not None:
+        leaves = _gathered(leaves, mesh, rules)
+        if mesh.rank != 0:
+            return ""
     arrays = {}
     dtypes = {}
     for i, leaf in enumerate(leaves):
@@ -236,13 +269,16 @@ SKIP = Skip()
 
 
 def restore_checkpoint(
-    directory: str, like: Any, step: Optional[int] = None
+    directory: str, like: Any, step: Optional[int] = None,
+    mesh: Optional[Mesh] = None, rules: Optional[List[Dims]] = None,
 ) -> Tuple[Any, Optional[int]]:
     """Restore into the structure of ``like``; returns (tree, step) or
     (like, None) when no checkpoint exists.  Each tensor leaf comes
     back with ``like``'s dtype and device (a recorded bfloat16 is read
     from its exact f32 widening) and must have ``like``'s shape; a
-    ``SKIP`` leaf is not read."""
+    ``SKIP`` leaf is not read.  In a gang (``mesh`` and ``rules`` as
+    in ``save_checkpoint``) ``like`` holds this rank's blocks, and each
+    full leaf of the file is cut to this rank's block."""
     files = _step_files(directory) if os.path.isdir(directory) else []
     target = step if step is not None else (
         files[-1][0] if files else None
@@ -275,6 +311,8 @@ def restore_checkpoint(
                 restored.append(leaf)
                 continue
             arr = data[f"leaf_{i}"]
+            if mesh is not None and rules is not None:
+                arr = shard(arr, rules[i], mesh)
             if isinstance(leaf, torch.Tensor):
                 if tuple(arr.shape) != tuple(leaf.shape):
                     raise ValueError(
@@ -289,21 +327,19 @@ def restore_checkpoint(
     return tree_unflatten(structure, restored), target
 
 
-def _snapshot_tree(tree: Any) -> Tuple[Any, Optional[torch.cuda.Event]]:
+def _snapshot_tree(tree: Any, mesh: Optional[Mesh] = None,
+                   rules: Optional[List[Dims]] = None
+                   ) -> Tuple[Any, Optional[torch.cuda.Event]]:
     """Device-side copy of a tree of tensors, enqueued on the current
     stream, and an event recorded behind the copies (None off the
-    card).
+    card).  Under a mesh each leaf is gathered to its full size first.
 
     The train step updates params and optimizer state IN PLACE on the
     same stream, after this copy: the clones hold the values of the
     save.  The writer thread waits on the event before it reads the
     clones, whatever stream it runs on."""
     leaves, structure = tree_flatten(tree)
-    clones = [
-        leaf.detach().clone() if isinstance(leaf, torch.Tensor)
-        else np.copy(np.asarray(leaf))
-        for leaf in leaves
-    ]
+    clones = _gathered(leaves, mesh, rules)
     event = None
     if any(isinstance(c, torch.Tensor) and c.is_cuda for c in clones):
         event = torch.cuda.Event()
@@ -327,15 +363,26 @@ class AsyncCheckpointer:
     immediately — a zombie trainer must stop fighting the live writer,
     not retry.  Write failures land in ``errors`` (telemetry-grade:
     training continues; the operator reads the list via ``wait()``).
+
+    A gang (``mesh``, ``rules``) follows ``save_checkpoint``: every rank
+    calls ``save()`` in the same order, the gather runs there, on the
+    caller's thread (a collective from the writer thread would race the
+    step's collectives), and only rank 0 enqueues a write.  Only rank 0
+    sees the directory, so it alone can latch the fence: its latch is
+    broadcast at each save and every rank skips the same saves (a skip
+    on rank 0 alone would leave the others in the gather).  Rank 0
+    claims the incarnation when none is handed in.
     """
 
     def __init__(
         self, directory: str, keep: int = 0,
         incarnation: Optional[int] = None, max_pending: int = 2,
+        mesh: Optional[Mesh] = None, rules: Optional[List[Dims]] = None,
     ):
         self.directory = directory
         self.keep = keep
-        if incarnation is None:
+        self.mesh, self.rules = mesh, rules
+        if incarnation is None and (mesh is None or mesh.rank == 0):
             incarnation = claim_incarnation(directory)
         self.incarnation = incarnation
         self.errors: List[str] = []
@@ -352,9 +399,16 @@ class AsyncCheckpointer:
     def save(self, step: int, tree: Any) -> None:
         """Snapshot ``tree`` (device-side clone) and enqueue the write;
         returns as soon as the copies are ENQUEUED."""
-        if self.fenced:
+        if self.mesh is not None and self.mesh.spec.total > 1:
+            if broadcast_int(int(self.fenced), self.mesh):
+                self.fenced = True
+                return
+        elif self.fenced:
             return
-        self._queue.put((step, *_snapshot_tree(tree)))
+        snapshot = _snapshot_tree(tree, self.mesh, self.rules)
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
+        self._queue.put((step, *snapshot))
 
     def _drain(self) -> None:
         while True:

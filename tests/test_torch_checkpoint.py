@@ -288,11 +288,15 @@ def test_worker_stored_layers_change_no_value(tmp_path):
 
 
 @pytest.mark.parametrize("gang", [{"TPU_WORKER_COUNT": "2"},
-                                  {"TPU_NUM_SLICES": "2"}])
+                                  {"TPU_NUM_SLICES": "2",
+                                   "TPU_WORKER_COUNT": "2"}])
 def test_worker_refuses_a_gang(tmp_path, gang):
+    """A gang contract without a ``COORDINATOR_ADDRESS`` has nowhere to
+    meet: the worker refuses it rather than train alone.  (A gang that
+    can meet trains: tests/test_torch_mesh.py.)"""
     env = dict(WORKER_ENV, TRAIN_STEPS="1",
                CHECKPOINT_DIR=str(tmp_path), **gang)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    with pytest.raises(ValueError, match="no COORDINATOR_ADDRESS"):
         train(env, log=lambda m: None)
 
 

@@ -66,7 +66,9 @@ def test_every_port_module_imports_without_jax():
         "dcos_commons_tpu_torch.trace.steplog",
         "dcos_commons_tpu_torch.data.loader",
         "dcos_commons_tpu_torch.parallel.distributed",
+        "dcos_commons_tpu_torch.parallel.mesh",
         "dcos_commons_tpu_torch.parallel.pipeline",
+        "dcos_commons_tpu_torch.parallel.sharding",
     } <= set(mods)
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT, REPO, *mods],

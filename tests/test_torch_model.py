@@ -288,11 +288,14 @@ def test_moe_config_runs():
 
 
 def test_moe_and_sequence_parallel_raise():
-    """What stays unported raises: expert parallelism over a mesh (the
-    MoE's ``axis_name``), ring and Ulysses attention."""
+    """What stays unported raises: ring and Ulysses attention, and a mesh
+    with sequence (sp) or pipeline (pp) parallelism, under the
+    "'MoE and long-context'" label; the MoE's ``axis_name`` needs a mesh
+    to reduce over (tests/test_torch_parallel.py runs it on one)."""
     from dcos_commons_tpu_torch.models.moe import MoEConfig, moe_ffn
+    from dcos_commons_tpu_torch.parallel.mesh import Mesh, MeshSpec
 
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         moe_ffn(MoEConfig(d_model=32, d_ff=32, n_experts=4,
                           dtype=torch.float32), {}, torch.zeros(4, 32),
                 axis_name="ep")
@@ -301,3 +304,9 @@ def test_moe_and_sequence_parallel_raise():
                                  dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="ring"):
         t_tf.forward(cfg, {}, torch.zeros(1, 2, dtype=torch.long))
+    cfg = t_tf.TransformerConfig(d_model=32, n_heads=4, vocab=64,
+                                 n_layers=1, dtype=torch.float32)
+    for spec in (MeshSpec(sp=2), MeshSpec(pp=2)):
+        with pytest.raises(NotImplementedError,
+                           match="'MoE and long-context'"):
+            t_tf.make_train_step(cfg, None, mesh=Mesh(spec))

@@ -182,14 +182,28 @@ def test_moe_ffn_bf16_matches_jax():
 
 
 def test_moe_ffn_expert_parallelism_raises():
+    """``axis_name`` outside a mesh, or over another axis than ep,
+    raises; on a mesh the ep path matches the reference's shard_map
+    case (tests/test_torch_parallel.py), and its layouts are the
+    reference's (tests/test_torch_mesh.py)."""
+    from dcos_commons_tpu_torch.parallel.mesh import Mesh, MeshSpec
+
     _, t_config = _moe_configs("drop-free")
     _, t_params = _moe_params(_moe_configs("drop-free")[0])
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         t_moe.moe_ffn(t_config, t_params, torch.zeros(8, 32),
                       axis_name="ep")
-    for fn in (t_moe.expert_shard_spec, t_moe.moe_sharding_rules):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            fn()
+    with Mesh(MeshSpec()):
+        with pytest.raises(ValueError, match="runs over 'ep'"):
+            t_moe.moe_ffn(t_config, t_params, torch.zeros(8, 32),
+                          axis_name="tp")
+        # an ep axis of one rank is the single-device path
+        x = torch.from_numpy(_x(3, 8, 32))
+        for impl in ("onehot", "sorted"):
+            got, aux = t_moe.moe_ffn(t_config, t_params, x, axis_name="ep",
+                                     impl=impl)
+            want, want_aux = t_moe.moe_ffn(t_config, t_params, x, impl=impl)
+            assert torch.equal(got, want) and torch.equal(aux, want_aux)
 
 
 # -- the MoE transformer ---------------------------------------------------
