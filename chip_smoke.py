@@ -63,6 +63,25 @@ CUDA card).  Phases, each fatal on failure:
    layers and seq 256, TF32 off: the loss within 1e-5, the first
    step's gradients and the params as ``compare_f32`` says); K2-K4 launch on each rank's rows and h/tp
    heads; each step's time split into collectives and compute.
+13. The serving gang (``frameworks/serve_gang_worker.py`` ``build_rank``:
+   the whole gang one tp axis, rank 0 driving the others with one tick
+   broadcast each, over gloo).  (a) Two processes on the one card over
+   gloo, f32 (TF32 off), the flagship's width at 2 layers, on both
+   pools: the greedy replies to 8 requests (16 new tokens each, one at
+   a time) equal one process's, and the prefill logits of a 900-token
+   prompt are within ``GANG_F32_LOGITS_RTOL`` of one process's.  (b)
+   The bf16 flagship at full width served by the tp2 gang on both pools
+   over phase 3's mix: every reply has its length; tokens/s, TTFT, the
+   decode step and its collectives' share (``timed_collectives``); K1
+   and K2 launch on each rank at its 8 heads (K2 on the slot pool only)
+   and are held against their plain versions at every shape a rank
+   gave them.
+14. Between 13(b)'s slot gang and its paged one: the port's
+   ``RouterServer`` in front of the gang's rank 0 and a single-card
+   serve worker (a process of its own), discovered through a stub of
+   the scheduler's ``/v1/endpoints/<vip>``.  Routed greedy replies
+   equal the pods' direct ones; the single pod is then killed while it
+   decodes, and every request completes (failed over to the gang).
 8. Run last: every kernel against its plain version at each shape the
    train runs of phases 7, 11 and 12 launched it at (K1 [24576, 16384
    or 4096, 2048] bf16, K2-K4 [192, 128 or 32, 2048, 2048, 128] bf16
@@ -71,7 +90,8 @@ CUDA card).  Phases, each fatal on failure:
 ``python3 chip_smoke.py --nccl-gang`` (a host with 2 or 4 cards) runs
 phase 12 over NCCL instead, rank r on card r (four cards: dp2 x tp2,
 fsdp2 x tp2, dcn2 x tp2, dp4 and the MoE under ep2 x tp2), then the
-gang train worker on every card, from scratch and resumed; nothing
+gang train worker on every card, from scratch and resumed, then phase
+13(b)'s serving gang at tp2 or tp4 over NCCL, one rank a card; nothing
 else.
 
 Each kernel's log line gives its error, its time, the plain version's,
@@ -82,7 +102,8 @@ run with exit code 3.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; each
 entry's ``launches`` sums the main-path runs, dense and MoE (phases 3,
-4, 7, 9, 11 and 12, both ranks of 12(b)), and its ``design`` says how it computes (K1: a warp a
+4, 7, 9, 11 and 12, both ranks of 12(b), both ranks of 13(b) and 14),
+and its ``design`` says how it computes (K1: a warp a
 row with 16-byte vector loads, launched through ctypes; K2-K4: wgmma
 with TMA-fed tiles in bf16, f32 FMA in f32).  The last line is ``{"ok":
 true, "device": {...}}``.  Without CUDA, or without the port beside it,
@@ -570,6 +591,44 @@ def post(port, path, body=None, timeout=600):
         return json.loads(resp.read())
 
 
+def post_waves(port, requests):
+    """POST ``requests`` to /generate in two concurrent waves (the second
+    finds the first's shared prefix pages fully prefilled, so the paged
+    path's prefix cache can hit).  Returns (replies, wall seconds)."""
+    replies = [None] * len(requests)
+    errors = []
+
+    def client(i):
+        try:
+            replies[i] = post(port, "/generate", requests[i])
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    t0 = time.monotonic()
+    half = len(requests) // 2
+    for wave in (range(half), range(half, len(requests))):
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in wave]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=900)
+    wall = time.monotonic() - t0
+    if errors:
+        raise errors[0]
+    return replies, wall
+
+
+def check_replies(requests, replies, vocab):
+    """Every reply one row of the requested length, in the vocabulary."""
+    for req, rep in zip(requests, replies):
+        toks = rep["tokens"]
+        if len(toks) != 1 or len(toks[0]) != req["max_new_tokens"]:
+            raise AssertionError(f"reply of the wrong length: {rep}")
+        if not all(0 <= t < vocab for t in toks[0]):
+            raise AssertionError(f"token out of range: {toks[0]}")
+
+
 def serve(env, requests, logs):
     """Start the port's worker in a thread, reset the counters, drive
     ``requests`` in two concurrent waves, read the counters.  Returns (replies,
@@ -588,43 +647,15 @@ def serve(env, requests, logs):
         torch.cuda.synchronize()
         for shape_log in logs.values():
             shape_log.reset()
-        replies = [None] * len(requests)
-        errors = []
-
-        def client(i):
-            try:
-                replies[i] = post(served.port, "/generate", requests[i])
-            except Exception as e:  # noqa: BLE001 — re-raised below
-                errors.append(e)
-
-        t0 = time.monotonic()
-        # two waves: the second finds the first's shared prefix pages
-        # fully prefilled, so the paged path's prefix cache can hit
-        half = len(requests) // 2
-        for wave in (range(half), range(half, len(requests))):
-            clients = [threading.Thread(target=client, args=(i,))
-                       for i in wave]
-            for c in clients:
-                c.start()
-            for c in clients:
-                c.join(timeout=900)
+        replies, wall = post_waves(served.port, requests)
         torch.cuda.synchronize()
-        wall = time.monotonic() - t0
         launches = {n: s.inner.launches for n, s in logs.items()}
-        if errors:
-            raise errors[0]
         stats = post(served.port, "/stats")
     finally:
         served.server.shutdown()
         served.server.server_close()
         served.engine.stop()
-    for req, rep in zip(requests, replies):
-        toks = rep["tokens"]
-        if len(toks) != 1 or len(toks[0]) != req["max_new_tokens"]:
-            raise AssertionError(f"reply of the wrong length: {rep}")
-        vocab = int(env["VOCAB"])
-        if not all(0 <= t < vocab for t in toks[0]):
-            raise AssertionError(f"token out of range: {toks[0]}")
+    check_replies(requests, replies, int(env["VOCAB"]))
     del served
     torch.cuda.empty_cache()
     return replies, launches, stats, wall
@@ -1566,6 +1597,504 @@ def phase_gang(tag, world, backend, layouts, deadline_s):
     return launches, shapes
 
 
+# -- phases 13-14: the serving gang and the router --------------------------
+
+GANG_SERVE_LAYERS_F32 = 2       # phase 13a: the flagship's width, 2 layers
+GANG_DECODE_STEPS = 10          # the decode-step bench after a served mix
+# phase 13a: the gang's prefill logits against one process's, f32 with
+# TF32 off: the largest difference over the largest |logit| (PERF.md §6
+# states the bound and its prediction)
+GANG_F32_LOGITS_RTOL = 1e-4
+
+
+def gang_serve_rank_main(rank, world, backend, init_method, env, dtype,
+                         probe, control, results):
+    """A rank of a serving gang (``serve_gang_worker.build_rank``): under
+    gloo every rank on card 0, under NCCL rank r on card r.  Counts the
+    kernels' launches from the end of the gang's warm-up until the served
+    phases end (rank 0: the parent's word on ``control``; the others:
+    rank 0's STOP tick), then every rank times ``GANG_DECODE_STEPS``
+    decode steps of its pool, plain and with the collectives timed, and,
+    given a ``probe`` prompt, runs its prefill (rank 0 keeps the
+    logits).  Puts ("port", port, None) from rank 0, then (rank, report
+    or None, error)."""
+    import traceback
+
+    try:
+        import torch.distributed as dist
+
+        from dcos_commons_tpu_torch.frameworks.serve_gang_worker import (
+            build_rank,
+        )
+        from dcos_commons_tpu_torch.models import decode
+
+        device = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        logs = install_shape_logs()
+        gang = build_rank(env, local_rank=rank, local_devices=world,
+                          init_method=init_method, backend=backend,
+                          device=device, dtype=dtype, ready_file="",
+                          log=log if rank == 0 else (lambda msg: None))
+        torch.cuda.synchronize()
+        for shape_log in logs.values():
+            shape_log.reset()
+        if rank == 0:
+            threading.Thread(target=gang.server.serve_forever,
+                             daemon=True).start()
+            results.put(("port", gang.port, None))
+            control.get()
+            torch.cuda.synchronize()
+            report = dict(launches={k: s.inner.launches
+                                    for k, s in logs.items()},
+                          shapes={k: sorted(s.shapes, key=str)
+                                  for k, s in logs.items()})
+            gang.stop()
+        else:
+            gang.follow()
+            torch.cuda.synchronize()
+            report = dict(launches={k: s.inner.launches
+                                    for k, s in logs.items()},
+                          shapes={k: sorted(s.shapes, key=str)
+                                  for k, s in logs.items()})
+        report.update(rank=rank, **bench_gang_decode(gang, dist))
+        if probe is not None:
+            with torch.inference_mode():
+                logits, _ = decode.prefill(
+                    gang.config, gang.pool.params,
+                    torch.as_tensor(probe, device=device)[None], len(probe),
+                    mesh=gang.mesh)
+            if rank == 0:
+                report["logits"] = logits.float().cpu().numpy()
+        dist.barrier()
+        dist.destroy_process_group()
+        results.put((rank, report, None))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        results.put((rank, None, traceback.format_exc()))
+
+
+def bench_gang_decode(gang, dist):
+    """Every rank in step: ``GANG_DECODE_STEPS`` decode steps of the
+    whole pool (every row at position 512) on the host clock around
+    synchronised steps, then as many with each collective bracketed by
+    device synchronisations (``timed_collectives``)."""
+    from dcos_commons_tpu_torch.parallel.sharding import timed_collectives
+
+    pool = gang.pool
+    n = pool.slots
+    args = [np.zeros(n, np.int32), np.full(n, 512, np.int32),
+            np.zeros(n, np.float32), np.zeros(n, np.int32)]
+    if hasattr(pool, "pages_per_row"):
+        ppr = pool.pages_per_row
+        args.append((1 + np.arange(n)[:, None] * ppr
+                     + np.arange(ppr)[None]).astype(np.int32))
+    for _ in range(3):
+        pool.decode(*args)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(GANG_DECODE_STEPS):
+        pool.decode(*args)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / GANG_DECODE_STEPS
+    dist.barrier()
+    with timed_collectives() as coll:
+        t0 = time.perf_counter()
+        for _ in range(GANG_DECODE_STEPS):
+            pool.decode(*args)
+        torch.cuda.synchronize()
+        timed_ms = (time.perf_counter() - t0) * 1e3 / GANG_DECODE_STEPS
+    return dict(decode_ms=step_ms, timed_ms=timed_ms,
+                collective_ms=coll["seconds"] * 1e3 / GANG_DECODE_STEPS,
+                collectives=coll["calls"] // GANG_DECODE_STEPS)
+
+
+def run_serve_gang(tag, world, backend, env, drive, deadline_s,
+                   dtype=None, probe=None):
+    """Spawn a serving gang of ``world`` ranks, call ``drive(port)`` with
+    rank 0's port once it serves, then stop the gang.  Returns (what
+    ``drive`` returned, every rank's report in rank order)."""
+    import multiprocessing
+    import queue
+
+    if backend == "nccl":
+        init_method = f"tcp://127.0.0.1:{free_port()}"
+    else:
+        store = os.path.join(ROOT, "build", "smoke", "serve_gang_store")
+        if os.path.exists(store):
+            os.remove(store)
+        init_method = f"file://{store}"
+    ctx = multiprocessing.get_context("spawn")
+    results, control = ctx.Queue(), ctx.Queue()
+    procs = [ctx.Process(target=gang_serve_rank_main,
+                         args=(r, world, backend, init_method, env, dtype,
+                               probe, control, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    reports = {}
+    end = time.monotonic() + deadline_s
+
+    def take():
+        while True:
+            try:
+                item = results.get(timeout=5)
+            except queue.Empty:
+                if time.monotonic() > end:
+                    raise AssertionError(f"{tag}: past its {deadline_s} s")
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    raise AssertionError(
+                        f"{tag}: a rank died, exit codes "
+                        f"{[p.exitcode for p in procs]}")
+                continue
+            if item[2] is not None:
+                raise AssertionError(f"{tag} rank {item[0]} failed:\n"
+                                     f"{item[2]}")
+            return item
+
+    try:
+        _, port, _ = take()
+        try:
+            out = drive(port)
+        finally:
+            control.put("stop")
+        while len(reports) < world:
+            rank, report, _ = take()
+            reports[rank] = report
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return out, [reports[r] for r in range(world)]
+
+
+def check_gang_kernels(tag, reports, slot_path, heads):
+    """K1 on every rank, K2 on every rank of the slot path (none on the
+    paged one) at ``heads`` heads, K3/K4 nowhere.  Returns (launches
+    summed over the ranks, shapes)."""
+    launches = {n: 0 for n in ("K1", "K2", "K3", "K4")}
+    shapes = {n: set() for n in launches}
+    for r in reports:
+        got = r["launches"]
+        if (got["K1"] == 0 or bool(got["K2"]) != slot_path or got["K3"]
+                or got["K4"]):
+            raise AssertionError(f"{tag} rank {r['rank']} kernels: {got}")
+        bhs = {tuple(x)[0] for x in r["shapes"]["K2"]}
+        if slot_path and bhs != {heads}:
+            raise AssertionError(f"{tag} rank {r['rank']}: K2 at "
+                                 f"{r['shapes']['K2']}, want {heads} heads")
+        for n in launches:
+            launches[n] += got[n]
+            shapes[n].update(tuple(x) for x in r["shapes"][n])
+    return launches, shapes
+
+
+def report_gang(tag, reports):
+    step = max(r["decode_ms"] for r in reports)
+    timed = max(r["timed_ms"] for r in reports)
+    coll = max(r["collective_ms"] for r in reports)
+    log(f"{tag}: decode step ({reports[0]['collectives']} collectives) "
+        f"{step:.2f} ms; timed step {timed:.2f} ms = collectives "
+        f"{coll:.2f} ms ({coll / timed:.1%}) + compute {timed - coll:.2f} "
+        f"ms; launches a rank {[r['launches'] for r in reports]}")
+    return dict(decode_ms=step, timed_ms=timed, collective_ms=coll)
+
+
+def one_process_replies(env, params, config, requests):
+    """The same requests, one at a time, through one process's pool of
+    the gang's geometry, on the card."""
+    from dcos_commons_tpu_torch.serve import paged_config_from_env
+    from dcos_commons_tpu_torch.serve.engine import PagedEngine, SlotEngine
+    from dcos_commons_tpu_torch.serve.pool import PagedPoolModel, PoolModel
+
+    max_len = int(env["MAX_LEN"])
+    slots = int(env["SERVE_BATCH"])
+    prompt_len = max_len - int(env["MAX_NEW_TOKENS"])
+    paged = paged_config_from_env(env)
+    if paged is not None:
+        pool = PagedPoolModel(config, params, slots, max_len,
+                              paged.page_tokens, paged.pages,
+                              paged.chunk_tokens)
+        engine = PagedEngine(pool.prefill_chunk, pool.decode, slots, max_len,
+                             prompt_len, page_tokens=paged.page_tokens,
+                             pages=paged.pages,
+                             chunk_tokens=paged.chunk_tokens,
+                             prefix_cache=paged.prefix_cache)
+    else:
+        pool = PoolModel(config, params, slots, max_len)
+        engine = SlotEngine(pool.prefill, pool.decode, slots, max_len,
+                            prompt_len)
+    try:
+        # the tokens as the workers' handler cleans them
+        return [{"tokens": engine.submit(
+            [[int(t) % config.vocab for t in row] for row in r["tokens"]],
+            r["max_new_tokens"])} for r in requests]
+    finally:
+        engine.stop()
+
+
+def phase_gang_f32(sandbox):
+    """13a: a gang of 2 over gloo on the one card, f32 (TF32 off), the
+    flagship's width at 2 layers, on both pools: its greedy replies (one
+    request at a time) equal one process's, and its prefill logits of
+    one prompt are within GANG_F32_LOGITS_RTOL of one process's."""
+    from dcos_commons_tpu_torch.models import config_from_env, init_params
+    from dcos_commons_tpu_torch.models.decode import prefill
+
+    requests = [dict(r, max_new_tokens=16, temperature=0.0)
+                for r in requests_for(32768, seed=1)]
+    probe = (np.asarray(requests[1]["tokens"][0], np.int64)
+             % int(FLAGSHIP_ENV["VOCAB"]))
+    for path, extra in (("slot", {"KV_PAGE_TOKENS": "0"}),
+                        ("paged", {"KV_PAGE_TOKENS": "16",
+                                   "PREFILL_CHUNK_TOKENS": "64"})):
+        env = dict(FLAGSHIP_ENV, **extra, SANDBOX=sandbox,
+                   N_LAYERS=str(GANG_SERVE_LAYERS_F32))
+        replies, reports = run_serve_gang(
+            f"13a {path}", 2, "gloo", env,
+            lambda port: [post(port, "/generate", r) for r in requests],
+            240, dtype=torch.float32, probe=probe)
+        check_replies(requests, replies, 32768)
+        config = config_from_env(env, dtype=torch.float32, remat=False)
+        params = init_params(config, seed=0, device="cuda")
+        want = one_process_replies(env, params, config, requests)
+        with torch.inference_mode():
+            ref, _ = prefill(config, params,
+                             torch.as_tensor(probe, device="cuda")[None],
+                             len(probe))
+        ref = ref.float().cpu().numpy()
+        rel = (np.abs(reports[0]["logits"] - ref).max()
+               / np.abs(ref).max())
+        same = sum(a == b for a, b in zip(replies, want))
+        lead = [next((j for j, (x, y) in enumerate(
+            zip(a["tokens"][0], b["tokens"][0])) if x != y), None)
+            for a, b in zip(replies, want)]
+        check_gang_kernels(f"13a {path}", reports, path == "slot", 8)
+        report_gang(f"13a f32 tp2 gloo {path}", reports)
+        log(f"13a f32 tp2 gloo {path} [{GANG_SERVE_LAYERS_F32} layers]: "
+            f"{same}/{len(requests)} greedy replies equal one process's "
+            f"(first differing token {lead}); prefill logits of a "
+            f"{len(probe)}-token prompt {rel:.3e} apart relative to the "
+            f"largest (limit {GANG_F32_LOGITS_RTOL})")
+        if same != len(requests) or not rel <= GANG_F32_LOGITS_RTOL:
+            raise AssertionError(f"13a {path}: the gang and one process "
+                                 "differ")
+        del params
+        torch.cuda.empty_cache()
+
+
+def endpoint_stub(backends):
+    """A stand-in for the scheduler's ``GET /v1/endpoints/<vip>``, in the
+    shape ``router.frontdoor.fetch_endpoint`` reads; ``backends`` is the
+    live list (name -> address), read at every poll."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):
+            pass
+
+        def do_GET(self):
+            if self.path != "/v1/endpoints/vip:inference":
+                self.send_error(404)
+                return
+            body = json.dumps({
+                "name": "vip:inference", "generation": "g1",
+                "address": sorted(backends.values()),
+                "backends": [{"address": a, "task": n,
+                              "state": "TASK_RUNNING", "ready": True,
+                              "draining": False}
+                             for n, a in sorted(backends.items())],
+            }).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server
+
+
+def start_pod(env, workdir):
+    """The port's serve worker as a process of its own on the card (so
+    it can be killed mid-stream); returns (process, port)."""
+    os.makedirs(workdir, exist_ok=True)
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "dcos_commons_tpu_torch",
+                                      "frameworks", "serve_worker.py")],
+        cwd=workdir, env=dict(os.environ, **dict(env, SANDBOX=workdir)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    for line in proc.stdout:
+        lines.append(line)
+        if line.startswith("warm:"):
+            port = int(line.rsplit("port", 1)[1])
+            threading.Thread(target=lambda: [None for _ in proc.stdout],
+                             daemon=True).start()
+            return proc, port
+    proc.wait()
+    raise AssertionError("the serve worker did not start:\n"
+                         + "".join(lines[-40:]))
+
+
+def phase_router(gang_port, pod_env, sandbox):
+    """14: the port's RouterServer in front of the gang's rank 0 and a
+    single-card serve worker, discovered through an endpoint stub.
+    Routed greedy replies equal the pods' direct ones; then the single
+    pod is killed while it decodes, and every request completes (on the
+    gang)."""
+    from dcos_commons_tpu_torch.router.frontdoor import RouterServer
+
+    prompts = [r["tokens"][0][:300] for r in requests_for(32768, seed=2)]
+    requests = [{"tokens": [p], "max_new_tokens": 16} for p in prompts]
+    pod, pod_port = start_pod(pod_env, os.path.join(sandbox, "pod"))
+    backends = {"gang": f"127.0.0.1:{gang_port}",
+                "pod": f"127.0.0.1:{pod_port}"}
+    stub = endpoint_stub(backends)
+    router = RouterServer(f"http://127.0.0.1:{stub.server_address[1]}",
+                          endpoint="vip:inference", port=0,
+                          host="127.0.0.1", poll_interval_s=0.5,
+                          page_tokens=16, log=log)
+    router.start()
+    try:
+        direct = {name: [post(int(addr.rsplit(":", 1)[1]), "/generate", r)
+                         for r in requests]
+                  for name, addr in backends.items()}
+        t0 = time.monotonic()
+        routed, _ = post_waves(router.port, requests)
+        routed_s = time.monotonic() - t0
+        served_by = []
+        for i, rep in enumerate(routed):
+            names = [n for n in backends if direct[n][i] == rep]
+            if not names:
+                raise AssertionError(f"14: routed reply {i} equals no "
+                                     f"pod's direct reply: {rep}")
+            served_by.append(names)
+        pods = post(router.port, "/pods")["pods"]
+        log(f"14 routed {len(routed)} greedy requests in {routed_s:.3f} s, "
+            f"each equal to a pod's direct reply (the pods that give it: "
+            f"{served_by}); admitted by pod "
+            f"{ {n: row.get('admitted') for n, row in pods.items()} }")
+        # kill the single pod while it decodes: the rest complete
+        killed = []
+
+        def killer():
+            end = time.monotonic() + 120
+            while time.monotonic() < end:
+                try:
+                    if post(pod_port, "/stats")["active_slots"] >= 1:
+                        break
+                except Exception:  # noqa: BLE001 — still starting
+                    pass
+                time.sleep(0.005)
+            pod.kill()
+            killed.append(time.monotonic())
+
+        before = post(router.port, "/stats")
+        thread = threading.Thread(target=killer)
+        thread.start()
+        t0 = time.monotonic()
+        replies = [None] * len(requests)
+        errors = []
+
+        def client(i):
+            try:
+                replies[i] = post(router.port, "/generate", requests[i])
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(requests))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        thread.join(timeout=130)
+        if errors:
+            raise errors[0]
+        after = post(router.port, "/stats")
+        kinds = []
+        for i, rep in enumerate(replies):
+            names = [n for n in backends if direct[n][i] == rep]
+            if not names:
+                raise AssertionError(f"14: reply {i} after the kill equals "
+                                     f"no pod's direct reply: {rep}")
+            kinds.append(names)
+        failovers = after["router_failovers"] - before["router_failovers"]
+        log(f"14 single pod killed mid-stream "
+            f"{killed[0] - t0:.3f} s into the wave: {len(replies)} requests "
+            f"completed in {time.monotonic() - t0:.3f} s (equal to the "
+            f"direct replies of {kinds}); router failovers {failovers}")
+        if not killed or failovers < 1:
+            raise AssertionError("14: the kill did not fail a request over")
+    finally:
+        router.stop()
+        stub.shutdown()
+        stub.server_close()
+        if pod.poll() is None:
+            pod.kill()
+        pod.wait(timeout=30)
+
+
+def phase_gang_serving(tag, world, backend, sandbox, router_phase,
+                       watchdog=None):
+    """13b (and ``--nccl-gang``'s tp4): the bf16 flagship at full width
+    served by a tp gang on both pools over the mix; on the slot pool,
+    then, with ``router_phase``, phase 14 in front of it.  Returns
+    (launches summed over the ranks, K1 shapes, K2 shapes)."""
+    requests = requests_for(32768)
+    heads = 16 // world
+    launches = {n: 0 for n in ("K1", "K2", "K3", "K4")}
+    shapes = {"K1": set(), "K2": set()}
+    for path, extra in (("slot", {"KV_PAGE_TOKENS": "0"}),
+                        ("paged", {"KV_PAGE_TOKENS": "16",
+                                   "PREFILL_CHUNK_TOKENS": "64"})):
+        env = dict(FLAGSHIP_ENV, **extra, SANDBOX=sandbox)
+
+        def drive(port):
+            replies, wall = post_waves(port, requests)
+            stats = post(port, "/stats")
+            if router_phase and path == "slot":
+                watchdog.phase("14 router", 420)
+                phase_router(port, env, sandbox)
+                watchdog.phase(f"{tag} serving gang, paged", 600)
+            return replies, wall, stats
+
+        (replies, wall, stats), reports = run_serve_gang(
+            f"{tag} {path}", world, backend, env, drive, 900)
+        check_replies(requests, replies, 32768)
+        found, seen = check_gang_kernels(f"{tag} {path}", reports,
+                                         path == "slot", heads)
+        report_serving(f"{tag} tp{world} {backend} {path}", replies,
+                       found, stats, wall)
+        report_gang(f"{tag} tp{world} {backend} {path}", reports)
+        for n in launches:
+            launches[n] += found[n]
+        shapes["K1"] |= seen["K1"]
+        shapes["K2"] |= seen["K2"]
+    return launches, shapes
+
+
+def check_gang_shapes(shapes, gen):
+    """K1 and K2 against their plain versions at every shape a gang rank
+    launched them at.  Returns the largest max-abs error of each."""
+    errs = {"K1": 0.0, "K2": 0.0}
+    for rows, d, dtype in sorted(shapes["K1"], key=str):
+        r = k1_case(rows, d, dtype, gen)
+        errs["K1"] = max(errs["K1"], r["err"])
+        log(f"K1 at a gang rank's shape [{rows}, {d}] {dtype}: {fmt_k1(r)}")
+    for bh, sq, sk, hd, causal, dtype in sorted(shapes["K2"], key=str):
+        r = k2_case(bh, sq, sk, hd, dtype, causal, gen, iters=5)
+        errs["K2"] = max(errs["K2"], r["err"])
+        log(f"K2 at a gang rank's shape [{bh}, {sq}, {sk}, {hd}] "
+            f"causal={causal} {dtype}: {fmt(r)}")
+    return errs
+
+
 def nccl_gang_main(kind, smi):
     """``--nccl-gang``: the gang step over NCCL, one rank a card, on
     every card of the host (2 or 4), against one process; then the gang
@@ -1599,6 +2128,12 @@ def nccl_gang_main(kind, smi):
         log(f"12(c) train worker, {n} ranks over NCCL, steps {start}.."
             f"{steps - 1}: batch {result.batch}, losses {result.losses}")
     shutil.rmtree(ckpt, ignore_errors=True)
+    # the serving gang at full width, one rank a card over NCCL
+    watchdog.phase(f"12(c) tp{n} serving gang", 600)
+    launches, _ = phase_gang_serving(
+        "12(c)", n, "nccl", os.path.join(ROOT, "build", "smoke"), False,
+        watchdog)
+    log(f"12(c) tp{n} serving launches over the ranks {launches}")
     watchdog.stop()
     log(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1744,9 +2279,22 @@ def main():
     watchdog.phase("12b two processes over gloo", 600)
     gang_two_launches, gang_two_shapes = phase_gang(
         "12(b)", 2, "gloo", GANG_LAYOUTS, 540)
+    # phase 13: the serving gang.  (a) f32 at 2 layers against one
+    # process; (b) the bf16 flagship at full width over the mix, on both
+    # pools, with phase 14 (the router in front of the gang and a single
+    # pod) between the slot and the paged gang
+    watchdog.phase("13a f32 serving gang", 420)
+    phase_gang_f32(sandbox)
+    watchdog.phase("13b serving gang, slot", 600)
+    serve_gang_launches, serve_gang_shapes = phase_gang_serving(
+        "13(b)", 2, "gloo", sandbox, True, watchdog)
+    watchdog.phase("13b K1 and K2 at the gang's shapes", 300)
+    for name, err in check_gang_shapes(serve_gang_shapes, gen).items():
+        errs[name] = max(errs[name], err)
     launches = {n: slot_launches[n] + paged_launches[n] + train_launches[n]
                 + moe_launches[n] + moe_train_launches[n]
-                + gang_one_launches[n] + gang_two_launches[n] for n in logs}
+                + gang_one_launches[n] + gang_two_launches[n]
+                + serve_gang_launches[n] for n in logs}
     for n in logs:
         train_shapes[n] |= moe_train_shapes[n] | gang_two_shapes[n]
 

@@ -71,35 +71,17 @@ class Served:
     shape: str
 
 
-def build_server(env: Mapping[str, str],
-                 log: Callable[[str], None] = print,
-                 ready_file: str = "ready") -> Served:
-    """Build the model, pool and engine from ``env``, bind the HTTP
-    port, warm both entry points and write ``ready_file`` (skipped
-    when empty)."""
-    import torch
-
-    from dcos_commons_tpu_torch.device import resolve_device
-    from dcos_commons_tpu_torch.metrics.registry import Metrics
-    from dcos_commons_tpu_torch.models import config_from_env, init_params
+def serving_params(env: Mapping[str, str], config, device,
+                   log: Callable[[str], None] = print):
+    """The full params a server starts from: random from seed 0, or,
+    with ``CHECKPOINT_DIR``, the params of the train worker's latest
+    checkpoint; with ``WEIGHT_DTYPE=int8`` quantized whole."""
+    from dcos_commons_tpu_torch.models import init_params
     from dcos_commons_tpu_torch.models.transformer import adamw_layout
     from dcos_commons_tpu_torch.utils.checkpoint import (
         SKIP,
         restore_checkpoint,
     )
-    from dcos_commons_tpu_torch.serve.pool import PagedPoolModel, PoolModel
-
-    device = resolve_device(env.get("TORCH_DEVICE") or "cuda")
-    config = config_from_env(
-        env,
-        dtype=torch.bfloat16 if device.type == "cuda" else torch.float32,
-        remat=False,
-    )
-    max_len = int(env.get("MAX_LEN", "256"))
-    # unset SERVE_BATCH means a bare/dev launch: one request
-    batch = int(env.get("SERVE_BATCH", "1"))
-    slots = int(env.get("SERVE_SLOTS") or 0) or batch
-    new_tokens = int(env.get("MAX_NEW_TOKENS", "32"))
 
     params = init_params(config, seed=0, device=device)
     ckpt_dir = env.get("CHECKPOINT_DIR", "")
@@ -119,6 +101,35 @@ def build_server(env: Mapping[str, str],
 
         params = quantize_params_int8(params)
         log("weights quantized to int8 (per-channel)")
+    return params
+
+
+def build_server(env: Mapping[str, str],
+                 log: Callable[[str], None] = print,
+                 ready_file: str = "ready") -> Served:
+    """Build the model, pool and engine from ``env``, bind the HTTP
+    port, warm both entry points and write ``ready_file`` (skipped
+    when empty)."""
+    import torch
+
+    from dcos_commons_tpu_torch.device import resolve_device
+    from dcos_commons_tpu_torch.metrics.registry import Metrics
+    from dcos_commons_tpu_torch.models import config_from_env
+    from dcos_commons_tpu_torch.serve.pool import PagedPoolModel, PoolModel
+
+    device = resolve_device(env.get("TORCH_DEVICE") or "cuda")
+    config = config_from_env(
+        env,
+        dtype=torch.bfloat16 if device.type == "cuda" else torch.float32,
+        remat=False,
+    )
+    max_len = int(env.get("MAX_LEN", "256"))
+    # unset SERVE_BATCH means a bare/dev launch: one request
+    batch = int(env.get("SERVE_BATCH", "1"))
+    slots = int(env.get("SERVE_SLOTS") or 0) or batch
+    new_tokens = int(env.get("MAX_NEW_TOKENS", "32"))
+
+    params = serving_params(env, config, device, log)
 
     prompt_len = max_len - new_tokens
     kv_dtype = env.get("KV_DTYPE", "native")

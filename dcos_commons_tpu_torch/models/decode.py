@@ -20,6 +20,22 @@ MoE layers route drop-free here (``_ffn_block(..., decode=True)``: the
 capacity covers every token), as in the reference: serving never drops
 a token, and a token's output then depends on that token alone, so
 cached decode, chunked paged prefill and a full forward agree.
+
+Tensor parallelism (``mesh=``, a mesh whose only axis above 1 is tp,
+what the serving gang builds): ``params`` are this rank's blocks
+(``transformer.shard_params``) and every cached path runs the train
+step's Megatron split.  The embedding is looked up vocab-parallel, each
+rank projects and attends its own ``n_heads/tp`` query heads over its
+own ``n_kv_heads/tp`` KV heads, ``wo``'s and ``w_down``'s partial sums
+(the MoE experts' too) are all-reduced, and the f32 logits are
+all-gathered over tp to ``[b, vocab]`` before anything reads them, so
+every rank returns the whole logits.  A cache holds the rank's KV
+heads.  Where tp does not divide ``n_kv_heads``, every rank holds
+``wk``, ``wv`` and the cache whole, as the reference's gang replicates
+its cache, and its query heads read the KV heads they map to.  Under
+``torch.no_grad`` the autograd collectives are plain collectives, so
+one body serves one device and the mesh; without a mesh nothing
+changes.
 """
 
 from __future__ import annotations
@@ -32,18 +48,75 @@ from dcos_commons_tpu_torch.device import resolve_device
 from dcos_commons_tpu_torch.models.quantize import dequantize_weight as dq
 from dcos_commons_tpu_torch.models.transformer import (
     TransformerConfig,
+    _attn_residual,
     _ffn_block,
     _logits,
-    _rope,
+    _project,
     check_supported,
     layer_params,
 )
 from dcos_commons_tpu_torch.ops.attention import flash_attention
-from dcos_commons_tpu_torch.ops.rmsnorm import rms_norm
+from dcos_commons_tpu_torch.parallel.mesh import Mesh
+from dcos_commons_tpu_torch.parallel.sharding import (
+    TP,
+    gather,
+    reduce_from,
+    vocab_parallel_embed,
+)
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
 _NEG = -1e30
+
+
+def check_serving_mesh(config: TransformerConfig, mesh: Optional[Mesh]
+                       ) -> None:
+    """Raise for a mesh the cached paths do not run: any axis but tp
+    above 1, or a tp that does not split the query heads."""
+    if mesh is None:
+        return
+    others = {a: n for a, n in mesh.shape.items() if a != "tp" and n > 1}
+    if others:
+        raise ValueError(f"the cached paths shard over tp only, not {others}")
+    if config.n_heads % mesh.size(TP):
+        raise ValueError(
+            f"tp={mesh.size(TP)} must divide n_heads={config.n_heads}"
+        )
+
+
+def _kv_heads_held(config: TransformerConfig, mesh: Optional[Mesh]) -> int:
+    """The KV heads a rank caches: its own ``n_kv_heads/tp``, or every
+    one where tp does not divide them."""
+    tp = 1 if mesh is None else mesh.size(TP)
+    return config.n_kv_heads // tp if config.n_kv_heads % tp == 0 \
+        else config.n_kv_heads
+
+
+def _kv_map(config: TransformerConfig, mesh: Optional[Mesh], device):
+    """Where the rank holds every KV head (tp does not divide them): the
+    KV head each of its query heads reads, an index into the cached
+    heads.  None where the rank's KV heads group its query heads in
+    order (no mesh, or tp divides ``n_kv_heads``)."""
+    if mesh is None or config.n_kv_heads % mesh.size(TP) == 0:
+        return None
+    h_local = config.n_heads // mesh.size(TP)
+    first = mesh.index(TP) * h_local
+    reps = config.n_heads // config.n_kv_heads
+    return torch.arange(first, first + h_local, device=device) // reps
+
+
+def _embed(params, tokens, mesh):
+    """The embedding rows of ``tokens`` (vocab-parallel under tp)."""
+    if mesh is None or mesh.size(TP) == 1:
+        return params["embed"][tokens]
+    return vocab_parallel_embed(params["embed"], tokens, mesh)
+
+
+def _full_logits(config, params, x, mesh) -> torch.Tensor:
+    """f32 logits ``[..., vocab]``: under tp each rank's block of the
+    vocabulary, all-gathered."""
+    return gather(_logits(config, params, x, mesh, params["embed"]), -1,
+                  mesh, TP)
 
 
 def _empty_cache(config: TransformerConfig, shape, kv_dtype: str,
@@ -68,19 +141,23 @@ def _empty_cache(config: TransformerConfig, shape, kv_dtype: str,
 
 
 def init_kv_cache(config: TransformerConfig, batch: int, max_len: int,
-                  kv_dtype: str = "native", device=None) -> Cache:
-    shape = (config.n_layers, batch, max_len, config.n_kv_heads,
-             config.head_dim)
+                  kv_dtype: str = "native", device=None,
+                  mesh: Optional[Mesh] = None) -> Cache:
+    """The slot cache of ``batch`` rows of ``max_len`` positions, of the
+    KV heads this rank holds (see the module doc)."""
+    shape = (config.n_layers, batch, max_len,
+             _kv_heads_held(config, mesh), config.head_dim)
     return _empty_cache(config, shape, kv_dtype, device)
 
 
 def init_paged_kv_cache(config: TransformerConfig, n_pages: int,
                         page_tokens: int, kv_dtype: str = "native",
-                        device=None) -> Cache:
+                        device=None, mesh: Optional[Mesh] = None) -> Cache:
     """The paged arena: ``n_pages`` pages of ``page_tokens`` positions
-    (page 0 is the trash page; see the module doc)."""
-    shape = (config.n_layers, n_pages, page_tokens, config.n_kv_heads,
-             config.head_dim)
+    (page 0 is the trash page; see the module doc), of the KV heads
+    this rank holds."""
+    shape = (config.n_layers, n_pages, page_tokens,
+             _kv_heads_held(config, mesh), config.head_dim)
     return _empty_cache(config, shape, kv_dtype, device)
 
 
@@ -93,18 +170,6 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
-def _project_kv(config, layer, normed, positions):
-    """normed [b, s, d] -> roped q, k, v in [b, s, heads, hd]."""
-    b, s, _ = normed.shape
-    h, kv, hd = config.n_heads, config.n_kv_heads, config.head_dim
-    q = (normed @ dq(layer["wq"], normed.dtype)).reshape(b, s, h, hd)
-    k = (normed @ dq(layer["wk"], normed.dtype)).reshape(b, s, kv, hd)
-    v = (normed @ dq(layer["wv"], normed.dtype)).reshape(b, s, kv, hd)
-    q = _rope(q, positions, config.rope_theta)
-    k = _rope(k, positions, config.rope_theta)
-    return q, k, v
-
-
 def _kv_entries(cache: Cache, k: torch.Tensor, v: torch.Tensor):
     """(cache key, value to store) for new K/V, quantized when the
     cache is int8."""
@@ -115,7 +180,7 @@ def _kv_entries(cache: Cache, k: torch.Tensor, v: torch.Tensor):
     return (("k", k), ("v", v))
 
 
-def _last_logits(config, params, x, true_len) -> torch.Tensor:
+def _last_logits(config, params, x, true_len, mesh=None) -> torch.Tensor:
     """Logits [b, vocab] f32 at each row's last real position."""
     b, s, _ = x.shape
     if true_len is None:
@@ -126,33 +191,34 @@ def _last_logits(config, params, x, true_len) -> torch.Tensor:
             x_last = x[:, last]
         else:
             x_last = x[torch.arange(b, device=x.device), last]
-    return _logits(config, params, x_last)
+    return _full_logits(config, params, x_last, mesh)
 
 
-def _prefill_trunk(config, params, tokens, write):
+def _prefill_trunk(config, params, tokens, write, mesh=None):
     """Run the prompt through the trunk with causal flash attention
-    (kernel K2 on the card); ``write(i, k, v)`` stores layer i's
-    captured K/V [b, s, kv, hd].  Returns the final hidden states
-    [b, s, d]."""
+    (kernel K2 on the card, on this rank's heads); ``write(i, k, v)``
+    stores layer i's captured K/V [b, s, kv, hd].  Returns the final
+    hidden states [b, s, d]."""
     check_supported(config)
+    check_serving_mesh(config, mesh)
     b, s = tokens.shape
-    h, kv = config.n_heads, config.n_kv_heads
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = params["embed"][tokens].to(config.dtype)
+    kv_map = _kv_map(config, mesh, tokens.device)
+    x = _embed(params, tokens, mesh).to(config.dtype)
     for i in range(config.n_layers):
         layer = layer_params(params["layers"], i)
-        normed = rms_norm(x, layer["attn_norm"])
-        q, k, v = _project_kv(config, layer, normed, positions)
-        k_full, v_full = k, v
-        if kv != h:
-            k_full = k.repeat_interleave(h // kv, dim=2)
-            v_full = v.repeat_interleave(h // kv, dim=2)
+        q, k, v = _project(config, layer, x, positions, mesh)
+        if kv_map is not None:
+            k_full, v_full = k[:, :, kv_map], v[:, :, kv_map]
+        else:
+            reps = q.shape[2] // k.shape[2]
+            k_full = k.repeat_interleave(reps, dim=2) if reps > 1 else k
+            v_full = v.repeat_interleave(reps, dim=2) if reps > 1 else v
         attn = flash_attention(
             *(t.transpose(1, 2) for t in (q, k_full, v_full)), causal=True
         )
-        attn = attn.transpose(1, 2).reshape(b, s, -1)
-        x = x + attn @ dq(layer["wo"], x.dtype)
-        x, _ = _ffn_block(config, layer, x, decode=True)
+        x = _attn_residual(config, layer, x, attn, mesh)
+        x, _ = _ffn_block(config, layer, x, decode=True, mesh=mesh)
         write(i, k, v)
     return x
 
@@ -164,6 +230,7 @@ def prefill(
     max_len: int,
     true_len=None,
     kv_dtype: str = "native",
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, Cache]:
     """tokens [b, s] (s <= max_len) -> (logits of the last real
     position [b, vocab] f32, a new cache filled for positions [0, s)).
@@ -174,14 +241,15 @@ def prefill(
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prompt {s} exceeds cache max_len {max_len}")
-    cache = init_kv_cache(config, b, max_len, kv_dtype, tokens.device)
+    cache = init_kv_cache(config, b, max_len, kv_dtype, tokens.device,
+                          mesh)
 
     def write(i, k, v):
         for name, val in _kv_entries(cache, k, v):
             cache[name][i, :, :s] = val
 
-    x = _prefill_trunk(config, params, tokens, write)
-    return _last_logits(config, params, x, true_len), cache
+    x = _prefill_trunk(config, params, tokens, write, mesh)
+    return _last_logits(config, params, x, true_len, mesh), cache
 
 
 def prefill_into_slot(
@@ -191,6 +259,7 @@ def prefill_into_slot(
     tokens: torch.Tensor,
     slot: Union[int, torch.Tensor],
     true_len=None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, Cache]:
     """Prefill prompt(s) ``tokens [nb, s]`` into rows of a persistent
     slot-pool cache: ``nb`` consecutive rows from ``slot`` (an int) or
@@ -215,8 +284,8 @@ def prefill_into_slot(
             buf[i, rows, :s] = val.to(buf.dtype)
             buf[i, rows, s:] = 0
 
-    x = _prefill_trunk(config, params, tokens, write)
-    return _last_logits(config, params, x, true_len), cache
+    x = _prefill_trunk(config, params, tokens, write, mesh)
+    return _last_logits(config, params, x, true_len, mesh), cache
 
 
 def sample_token(logits: torch.Tensor, temperature: float,
@@ -240,9 +309,10 @@ def _attend(config, q, k_all, v_all, valid, ks_all=None, vs_all=None):
     """Masked-softmax attention of new queries over cached keys, in
     f32, GQA-grouped against the unexpanded cache.  q [b, c, h, hd];
     k_all/v_all [b, L, kv, hd]; valid broadcastable to [b, c, L];
-    int8 scales [b, L, kv] fold into scores and probabilities."""
-    b, c = q.shape[:2]
-    h, kv, hd = config.n_heads, config.n_kv_heads, config.head_dim
+    int8 scales [b, L, kv] fold into scores and probabilities.  The
+    head counts are the tensors' (a tp rank's own)."""
+    b, c, h, hd = q.shape
+    kv = k_all.shape[2]
     reps = h // kv
     qg = (q.float() * hd ** -0.5).reshape(b, c, kv, reps, hd)
     scores = torch.einsum("bqkrd,blkd->bqkrl", qg, k_all.float())
@@ -257,27 +327,35 @@ def _attend(config, q, k_all, v_all, valid, ks_all=None, vs_all=None):
     return attn.to(config.dtype).reshape(b, c, h * hd)
 
 
-def _decode_trunk(config, params, cache, x, positions, store, gather,
-                  valid):
-    """Shared layer loop of the cached paths: project, ``store(i, name,
-    value)`` the new K/V, ``gather(i, name)`` the attended [b, L, ...]
-    cache view, attend, FFN.  Returns the final hidden states."""
+def _decode_trunk(config, params, cache, tokens, positions, store, view,
+                  valid, mesh=None):
+    """Shared layer loop of the cached paths: embed ``tokens``, project,
+    ``store(i, name, value)`` the new K/V, ``view(i, name)`` the attended
+    [b, L, ...] cache view, attend, FFN.  Returns the final hidden
+    states."""
     check_supported(config)
+    check_serving_mesh(config, mesh)
     quantized = "k_scale" in cache
+    kv_map = _kv_map(config, mesh, tokens.device)
+
+    def read(i, name):
+        full = view(i, name)
+        return full if kv_map is None else full[:, :, kv_map]
+
+    x = _embed(params, tokens, mesh).to(config.dtype)
     for i in range(config.n_layers):
         layer = layer_params(params["layers"], i)
-        normed = rms_norm(x, layer["attn_norm"])
-        q, k_new, v_new = _project_kv(config, layer, normed, positions)
+        q, k_new, v_new = _project(config, layer, x, positions, mesh)
         for name, val in _kv_entries(cache, k_new, v_new):
             store(i, name, val)
         scales = (
-            (gather(i, "k_scale")[..., 0], gather(i, "v_scale")[..., 0])
+            (read(i, "k_scale")[..., 0], read(i, "v_scale")[..., 0])
             if quantized else (None, None)
         )
-        attn = _attend(config, q, gather(i, "k"), gather(i, "v"), valid,
+        attn = _attend(config, q, read(i, "k"), read(i, "v"), valid,
                        *scales)
-        x = x + attn @ dq(layer["wo"], x.dtype)
-        x, _ = _ffn_block(config, layer, x, decode=True)
+        x = x + reduce_from(attn @ dq(layer["wo"], x.dtype), mesh, TP)
+        x, _ = _ffn_block(config, layer, x, decode=True, mesh=mesh)
     return x
 
 
@@ -287,6 +365,7 @@ def decode_step(
     cache: Cache,
     token: torch.Tensor,
     pos,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, Cache]:
     """One autoregressive step: token [b] at position ``pos`` (an int
     shared by the batch, or a [b] tensor of per-row positions) ->
@@ -294,7 +373,6 @@ def decode_step(
     b = token.shape[0]
     dev = token.device
     max_len = cache["k"].shape[2]
-    x = params["embed"][token][:, None, :].to(config.dtype)
     pos_t = torch.as_tensor(pos, device=dev).long()
     per_row = pos_t.dim() == 1
     positions = pos_t[:, None] if per_row else pos_t.expand(b, 1)
@@ -308,9 +386,9 @@ def decode_step(
         else:
             cache[name][i, :, int(pos_t)] = val[:, 0].to(cache[name].dtype)
 
-    x = _decode_trunk(config, params, cache, x, positions, store,
-                      lambda i, name: cache[name][i], valid)
-    return _logits(config, params, x[:, 0]), cache
+    x = _decode_trunk(config, params, cache, token[:, None], positions,
+                      store, lambda i, name: cache[name][i], valid, mesh)
+    return _full_logits(config, params, x[:, 0], mesh), cache
 
 
 def paged_prefill_chunk(
@@ -321,6 +399,7 @@ def paged_prefill_chunk(
     table: torch.Tensor,
     start: int,
     true_len: int,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, Cache]:
     """One chunk of a prompt through the trunk into a paged arena.
 
@@ -349,18 +428,17 @@ def paged_prefill_chunk(
     slot_off = abs_pos % p_tok
     valid = (torch.arange(length, device=dev)[None, :]
              <= abs_pos[:, None])[None]              # [1, c, L]
-    x = params["embed"][tokens].to(config.dtype)
 
     def store(i, name, val):
         cache[name][i][phys, slot_off] = val[0].to(cache[name].dtype)
 
-    def gather(i, name):
+    def view(i, name):
         pages = cache[name][i][table]                 # [M, P, ...]
         return pages.reshape(1, length, *pages.shape[2:])
 
-    x = _decode_trunk(config, params, cache, x, positions, store, gather,
-                      valid)
-    return _logits(config, params, x[:, true_len - 1]), cache
+    x = _decode_trunk(config, params, cache, tokens, positions, store, view,
+                      valid, mesh)
+    return _full_logits(config, params, x[:, true_len - 1], mesh), cache
 
 
 def paged_decode_step(
@@ -370,6 +448,7 @@ def paged_decode_step(
     token: torch.Tensor,
     pos: torch.Tensor,
     tables: torch.Tensor,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, Cache]:
     """One step over the whole pool through per-row page tables:
     ``token [S]`` at positions ``pos [S]``, ``tables [S, M]`` ->
@@ -389,18 +468,17 @@ def paged_decode_step(
     slot_off = pos % p_tok
     valid = (torch.arange(length, device=dev)[None, :]
              <= positions)[:, None, :]               # [b, 1, L]
-    x = params["embed"][token][:, None, :].to(config.dtype)
 
     def store(i, name, val):
         cache[name][i][phys, slot_off] = val[:, 0].to(cache[name].dtype)
 
-    def gather(i, name):
+    def view(i, name):
         pages = cache[name][i][tables]                # [b, M, P, ...]
         return pages.reshape(b, length, *pages.shape[3:])
 
-    x = _decode_trunk(config, params, cache, x, positions, store, gather,
-                      valid)
-    return _logits(config, params, x[:, 0]), cache
+    x = _decode_trunk(config, params, cache, token[:, None], positions,
+                      store, view, valid, mesh)
+    return _full_logits(config, params, x[:, 0], mesh), cache
 
 
 def generate(
@@ -413,6 +491,7 @@ def generate(
     max_len: Optional[int] = None,
     true_len=None,
     kv_dtype: str = "native",
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """Autoregressive continuation: prompt [b, s] -> tokens
     [b, max_new_tokens] (int64).  temperature 0 = greedy; otherwise
@@ -428,13 +507,13 @@ def generate(
     if float(temperature) > 0.0 and generator is None:
         raise ValueError("sampling (temperature > 0) needs a generator")
     logits, cache = prefill(config, params, prompt, total, true_len,
-                            kv_dtype=kv_dtype)
+                            kv_dtype=kv_dtype, mesh=mesh)
     token = sample_token(logits, temperature, generator)
     pos = (torch.as_tensor(true_len, device=prompt.device).long()
            if true_len is not None else s)
     out = [token]
     for _ in range(max_new_tokens - 1):
-        logits, cache = decode_step(config, params, cache, token, pos)
+        logits, cache = decode_step(config, params, cache, token, pos, mesh)
         token = sample_token(logits, temperature, generator)
         out.append(token)
         pos = pos + 1

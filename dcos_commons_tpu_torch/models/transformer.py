@@ -323,11 +323,35 @@ def shard_params(params: Params, config: TransformerConfig, mesh: Mesh
                  ) -> Params:
     """This rank's block of every leaf of a full param tree, as tensors
     of its own (what ``device_put`` with the rule's ``NamedSharding``
-    leaves on one device)."""
-    leaves, structure = tree_flatten(params)
-    return tree_unflatten(structure, [
-        shard(t, dims, mesh) for t, dims in zip(leaves, leaf_rules(config))
-    ])
+    leaves on one device).
+
+    Two cases only a serving gang meets (``check_mesh`` refuses the
+    second for training):
+    - a weight-only int8 leaf (``quantize_params_int8`` of the FULL
+      weight, as the reference quantizes the placed global arrays):
+      ``q`` takes the weight's rule and ``scale`` the rule without its
+      contraction axis -2, where the scale has one row, so a row split
+      over tp (``wo``, ``w_down``) keeps the amax of the whole column;
+    - tp not dividing ``n_kv_heads``: ``wk`` and ``wv`` are held whole
+      by every rank, as the reference's ``kv_spec`` replicates the
+      cache, and each rank computes every KV head."""
+    rules = sharding_rules(config)
+    if config.n_kv_heads % mesh.size(TP):
+        for name in ("layers/wk", "layers/wv"):
+            rules[name] = P(None, "fsdp", None)
+
+    def walk(node, path):
+        if isinstance(node, dict) and set(node) != {"q", "scale"}:
+            return {k: walk(v, f"{path}/{k}" if path else k)
+                    for k, v in node.items()}
+        dims = rules[path]
+        if isinstance(node, dict):
+            return {"q": shard(node["q"], dims, mesh),
+                    "scale": shard(node["scale"],
+                                   dims[:-2] + ((),) + dims[-1:], mesh)}
+        return shard(node, dims, mesh)
+
+    return walk(params, "")
 
 
 def unshard_params(params: Params, config: TransformerConfig, mesh: Mesh
@@ -391,19 +415,28 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return rotated.to(x.dtype)
 
 
-def _qkv(config: TransformerConfig, layer, x, positions, mesh=None):
-    """Norm, projections, RoPE and the GQA repeat: q, k, v in the
-    kernels' ``[b, heads, s, head_dim]`` layout (a tp rank's own heads
-    under a mesh: its block of the columns of wq, wk and wv)."""
-    b, s, d = x.shape
-    tp = 1 if mesh is None else mesh.size(TP)
-    h, kv, hd = config.n_heads // tp, config.n_kv_heads // tp, config.head_dim
+def _project(config: TransformerConfig, layer, x, positions, mesh=None):
+    """Norm, projections and RoPE: q ``[b, s, heads, head_dim]``, k and
+    v ``[b, s, kv_heads, head_dim]``, the heads being the columns of wq,
+    wk and wv the rank holds (under a mesh its block of each; where tp
+    does not divide the KV heads a serving rank holds wk and wv whole,
+    see ``shard_params``, and k and v carry every KV head)."""
+    b, s, _ = x.shape
+    hd = config.head_dim
     normed = copy_to(rms_norm(x, layer["attn_norm"]), mesh, TP)
-    q = (normed @ dq(layer["wq"], x.dtype)).reshape(b, s, h, hd)
-    k = (normed @ dq(layer["wk"], x.dtype)).reshape(b, s, kv, hd)
-    v = (normed @ dq(layer["wv"], x.dtype)).reshape(b, s, kv, hd)
+    q = (normed @ dq(layer["wq"], x.dtype)).reshape(b, s, -1, hd)
+    k = (normed @ dq(layer["wk"], x.dtype)).reshape(b, s, -1, hd)
+    v = (normed @ dq(layer["wv"], x.dtype)).reshape(b, s, -1, hd)
     q = _rope(q, positions, config.rope_theta)
     k = _rope(k, positions, config.rope_theta)
+    return q, k, v
+
+
+def _qkv(config: TransformerConfig, layer, x, positions, mesh=None):
+    """``_project`` and the GQA repeat: q, k, v in the kernels' ``[b,
+    heads, s, head_dim]`` layout (a tp rank's own heads under a mesh)."""
+    q, k, v = _project(config, layer, x, positions, mesh)
+    h, kv = q.shape[2], k.shape[2]
     if kv != h:
         k = k.repeat_interleave(h // kv, dim=2)
         v = v.repeat_interleave(h // kv, dim=2)

@@ -161,3 +161,50 @@ def gather_ints(value: int, mesh) -> List[int]:
 def barrier(mesh) -> None:
     """Wait until every rank of the world has reached this call."""
     gather_ints(0, mesh)
+
+
+# -- the serving gang's tick -------------------------------------------------
+# Rank 0 of a serving gang drives every rank with one broadcast a tick
+# (frameworks/serve_gang_worker.py).  Its payloads are small host arrays
+# of fixed shapes, so they ride gloo on the host: over NCCL, which
+# carries CUDA tensors only, every tick would pay a host-to-device copy
+# before the broadcast and a device-to-host copy and a sync after it,
+# and the idle ticks would sit in NCCL's watchdog.  Beside an NCCL world
+# the tick gets a gloo group of its own; under gloo it rides the world.
+
+
+def tick_group(timeout_s: float = 300):
+    """The process group of the tick broadcast (None: the world, when
+    it is gloo's).  Collective: every rank calls it once, at the same
+    point, after the world is initialised."""
+    import torch.distributed as dist
+
+    if dist.get_backend() == "gloo":
+        return None
+    return dist.new_group(backend="gloo",
+                          timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def broadcast_arrays(arrays, like, group=None):
+    """Rank 0's integer numpy ``arrays`` on every rank, the counterpart
+    of ``multihost_utils.broadcast_one_to_all``: rank 0 passes its
+    arrays, the others None, and every rank gets arrays of ``like``'s
+    shapes and dtypes.  One broadcast of one flat int64 host tensor, of
+    the same size every tick.  A world of one returns ``arrays``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() == 1:
+        return tuple(np.asarray(a) for a in arrays)
+    src = like if arrays is None else arrays
+    flat = torch.from_numpy(np.concatenate(
+        [np.asarray(a).astype(np.int64).ravel() for a in src]))
+    dist.broadcast(flat, 0, group=group)
+    out, at = [], 0
+    for a in like:
+        out.append(flat[at:at + a.size].numpy().astype(a.dtype)
+                   .reshape(a.shape))
+        at += a.size
+    return tuple(out)

@@ -17,10 +17,20 @@ neighbours, and no seed repeats across steps.  Greedy rows argmax.
 The draws differ from the JAX package's (different generators); the
 slot-independence property and greedy tokens are what carry over.
 
-Not thread-safe by itself: exactly one thread (the engine loop) calls
-the entry points.  The gang driver's ``cache_sharding``/``put``/
-``constrain_out`` riders of the JAX pools are not ported yet (ROADMAP
-queue 1, the serving gang).
+Not thread-safe by itself: exactly one thread (the engine loop, or a
+gang rank's tick executor) calls the entry points.
+
+The serving gang (``frameworks/serve_gang_worker.py``) passes ``mesh``,
+a tp mesh over its ranks, and ``params``, the rank's blocks
+(``models.transformer.shard_params``): the port's form of the JAX
+pools' three riders.  ``cache_sharding`` is the cache of the rank's own
+KV heads (``models.decode``, every head where tp does not divide them);
+``put`` has nothing to do, as each rank gets its host arrays from the
+tick broadcast and moves them to its own device; ``constrain_out`` is
+the all-gather of the logits over tp inside the decode paths, so every
+rank picks from the whole ``[b, vocab]`` and returns the same tokens.
+Every rank of the gang calls every entry point, ``warm`` included, with
+the same arguments.
 """
 
 from __future__ import annotations
@@ -66,14 +76,15 @@ class PoolModel:
     device of ``params``."""
 
     def __init__(self, config, params, slots: int, max_len: int,
-                 kv_dtype: str = "native"):
+                 kv_dtype: str = "native", mesh=None):
         self.config = config
         self.params = params
         self.slots = slots
         self.max_len = max_len
+        self.mesh = mesh
         self.device = params["embed"].device
         self.cache = init_kv_cache(config, slots, max_len, kv_dtype,
-                                   device=self.device)
+                                   device=self.device, mesh=mesh)
 
     @torch.inference_mode()
     def prefill(self, tokens: np.ndarray, slot: int, true_len: int,
@@ -84,7 +95,8 @@ class PoolModel:
             np.asarray(tokens, np.int64)[:, :true_len], device=self.device
         )
         logits, self.cache = prefill_into_slot(
-            self.config, self.params, self.cache, toks, int(slot), true_len
+            self.config, self.params, self.cache, toks, int(slot), true_len,
+            self.mesh,
         )
         return int(_pick_rows(logits, [temp], [seed], [true_len - 1])[0])
 
@@ -99,7 +111,7 @@ class PoolModel:
         logits, self.cache = decode_step(
             self.config, self.params, self.cache,
             torch.as_tensor(np.asarray(tok, np.int64), device=self.device),
-            torch.as_tensor(pos, device=self.device),
+            torch.as_tensor(pos, device=self.device), self.mesh,
         )
         return _pick_rows(logits, temps, seeds, pos)
 
@@ -123,7 +135,7 @@ class PagedPoolModel:
 
     def __init__(self, config, params, slots: int, max_len: int,
                  page_tokens: int, pages: int, chunk_tokens: int,
-                 kv_dtype: str = "native"):
+                 kv_dtype: str = "native", mesh=None):
         self.config = config
         self.params = params
         self.slots = slots
@@ -132,9 +144,11 @@ class PagedPoolModel:
         self.pages = pages
         self.chunk_tokens = chunk_tokens
         self.pages_per_row = pages_for(max_len, page_tokens)
+        self.mesh = mesh
         self.device = params["embed"].device
         self.cache = init_paged_kv_cache(
-            config, pages + 1, page_tokens, kv_dtype, device=self.device
+            config, pages + 1, page_tokens, kv_dtype, device=self.device,
+            mesh=mesh,
         )
 
     @torch.inference_mode()
@@ -153,7 +167,7 @@ class PagedPoolModel:
         logits, self.cache = paged_prefill_chunk(
             self.config, self.params, self.cache, toks,
             torch.as_tensor(np.asarray(table, np.int64), device=self.device),
-            start, true_len,
+            start, true_len, self.mesh,
         )
         return int(_pick_rows(logits, [temp], [seed],
                               [start + true_len - 1])[0])
@@ -171,6 +185,7 @@ class PagedPoolModel:
             torch.as_tensor(pos, device=self.device),
             torch.as_tensor(np.asarray(tables, np.int64),
                             device=self.device),
+            self.mesh,
         )
         return _pick_rows(logits, temps, seeds, pos)
 

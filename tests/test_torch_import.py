@@ -69,6 +69,14 @@ def test_every_port_module_imports_without_jax():
         "dcos_commons_tpu_torch.parallel.mesh",
         "dcos_commons_tpu_torch.parallel.pipeline",
         "dcos_commons_tpu_torch.parallel.sharding",
+        "dcos_commons_tpu_torch.frameworks.serve_gang_worker",
+        "dcos_commons_tpu_torch.frameworks.router_worker",
+        "dcos_commons_tpu_torch.router",
+        "dcos_commons_tpu_torch.router.affinity",
+        "dcos_commons_tpu_torch.router.core",
+        "dcos_commons_tpu_torch.router.frontdoor",
+        "dcos_commons_tpu_torch.router.telemetry",
+        "dcos_commons_tpu_torch.security.auth",
     } <= set(mods)
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT, REPO, *mods],
@@ -115,6 +123,9 @@ def test_no_source_imports_triton(path):
 
 def test_entry_points_default_to_the_card():
     from dcos_commons_tpu_torch.device import resolve_device
+    from dcos_commons_tpu_torch.frameworks.serve_gang_worker import (
+        build_rank,
+    )
     from dcos_commons_tpu_torch.frameworks.serve_worker import build_server
     from dcos_commons_tpu_torch.frameworks.train_worker import train
     from dcos_commons_tpu_torch.models import (
@@ -136,6 +147,7 @@ def test_entry_points_default_to_the_card():
         lambda: init_kv_cache(config, 1, 8),
         lambda: params_from_jax({"layers": {}}),
         lambda: build_server({"VOCAB": "16"}, ready_file=""),
+        lambda: build_rank({"VOCAB": "16"}, ready_file=""),
         lambda: train({"VOCAB": "16", "TRAIN_STEPS": "1"}),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):

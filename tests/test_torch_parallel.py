@@ -101,9 +101,10 @@ dist.destroy_process_group()
 """
 
 
-def run_gang(work, world, fn, payload, deadline_s=DEADLINE_S):
-    """Run ``fn(payload)`` in ``world`` fresh processes joined by gloo
-    over a file store in ``work``; return rank 0's result.  Every
+def run_gang(work, world, fn, payload, deadline_s=DEADLINE_S,
+             module=__name__):
+    """Run ``module.fn(payload)`` in ``world`` fresh processes joined by
+    gloo over a file store in ``work``; return rank 0's result.  Every
     process is killed at the deadline."""
     os.makedirs(work, exist_ok=True)
     with open(os.path.join(work, "in.pkl"), "wb") as f:
@@ -114,7 +115,7 @@ def run_gang(work, world, fn, payload, deadline_s=DEADLINE_S):
         log = open(os.path.join(work, f"rank{rank}.log"), "w")
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", _RUNNER, REPO, TESTS, __name__, fn,
+            [sys.executable, "-c", _RUNNER, REPO, TESTS, module, fn,
              str(rank), str(world), str(work)],
             stdout=log, stderr=subprocess.STDOUT, env=env, cwd=REPO))
     end = time.monotonic() + deadline_s
