@@ -82,17 +82,36 @@ CUDA card).  Phases, each fatal on failure:
    the scheduler's ``/v1/endpoints/<vip>``.  Routed greedy replies
    equal the pods' direct ones; the single pod is then killed while it
    decodes, and every request completes (failed over to the gang).
+15. Long context: two processes on the one card joined by gloo, each
+   layout against one process on the card on the whole sequence and
+   the full params.  (a) f32 (TF32 off), the flagship's width at 2
+   layers, 512 positions a rank, batch 2: Ulysses and ring over sp2
+   (``make_train_step(mesh=...)`` on each rank's chunk; the loss within
+   1e-5, the first step's gradients and the params after 2 AdamW steps
+   as ``compare_f32`` says) and the pipeline over pp2 in 2
+   microbatches (``pipeline_value_and_grad`` and AdamW on each stage's
+   leaves, held the same way).  (b) The bf16 flagship at full width and
+   depth, 2048 positions a rank: Ulysses and ring over sp2 (a context
+   of 4096, batch 1, 3 steps) and the pipeline over pp2 (batch 4, 4
+   microbatches, 2 steps), the loss within 1e-2 of one process; step
+   ms, tokens/s and the split into collectives and compute.  Ulysses
+   ranks launch K2-K4 at [8, 4096, 4096, 128], the ring none of them.
 8. Run last: every kernel against its plain version at each shape the
-   train runs of phases 7, 11 and 12 launched it at (K1 [24576, 16384
-   or 4096, 2048] bf16, K2-K4 [192, 128 or 32, 2048, 2048, 128] bf16
-   causal, and the gang's), within ``TOL``.
+   train runs of phases 7, 11, 12 and 15 launched it at (K1 [24576,
+   16384 or 4096, 2048] bf16, K2-K4 [192, 128 or 32, 2048, 2048, 128]
+   bf16 causal, the gang's, and Ulysses' [8, 4096, 4096, 128]), within
+   ``TOL``.
 
 ``python3 chip_smoke.py --nccl-gang`` (a host with 2 or 4 cards) runs
 phase 12 over NCCL instead, rank r on card r (four cards: dp2 x tp2,
 fsdp2 x tp2, dcn2 x tp2, dp4 and the MoE under ep2 x tp2), then the
 gang train worker on every card, from scratch and resumed, then phase
-13(b)'s serving gang at tp2 or tp4 over NCCL, one rank a card; nothing
-else.
+13(b)'s serving gang at tp2 or tp4 over NCCL, one rank a card, then
+long context over NCCL: ``collective_bandwidth`` (psum, all_gather,
+reduce_scatter, the ring hop; 64 MB a rank) over every card and
+``single_chip_rooflines`` on card 0, then phase 15(b)'s layouts (two
+cards: Ulysses and ring sp2, pp2; four: Ulysses and ring sp4 at a
+context of 8192, Ulysses sp2 x tp2, pp2 x dp2); nothing else.
 
 Each kernel's log line gives its error, its time, the plain version's,
 the library call's and the bound, the rate it reached (TFLOP/s) and its
@@ -102,7 +121,7 @@ run with exit code 3.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; each
 entry's ``launches`` sums the main-path runs, dense and MoE (phases 3,
-4, 7, 9, 11 and 12, both ranks of 12(b), both ranks of 13(b) and 14),
+4, 7, 9, 11 and 12, both ranks of 12(b), of 13(b) and 14 and of 15),
 and its ``design`` says how it computes (K1: a warp a
 row with 16-byte vector loads, launched through ctypes; K2-K4: wgmma
 with TMA-fed tiles in bf16, f32 FMA in f32).  The last line is ``{"ok":
@@ -1381,6 +1400,43 @@ def compare_f32(gang, ref, gang_grads, grads):
     return out
 
 
+def time_gang_step(step, params, tokens, targets):
+    """One step of every rank timed on the host clock, then one more
+    with each collective bracketed by device synchronisations
+    (``timed_collectives``): (step ms, timed ms, the collectives'
+    stats: ``seconds``, ``calls``)."""
+    import torch.distributed as dist
+
+    from dcos_commons_tpu_torch.parallel.sharding import timed_collectives
+
+    dist.barrier()
+    t0 = time.perf_counter()
+    step(params, tokens, targets)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    dist.barrier()
+    with timed_collectives() as coll:
+        t0 = time.perf_counter()
+        step(params, tokens, targets)
+        torch.cuda.synchronize()
+        timed_ms = (time.perf_counter() - t0) * 1e3
+    return step_ms, timed_ms, coll
+
+
+def judge_f32(r0):
+    """(within tolerance, its log text) of an f32 gang run's rank 0
+    report against one process (``compare_f32``'s entries)."""
+    first = r0["steps"][0]
+    ok = (r0["loss_rel"] <= 1e-5 and first["grad_rel"] <= 1e-5
+          and first["apart"] == 0
+          and all(st["all"] <= 2 * LR * (k + 1) * (1 + 1e-4)
+                  for k, st in enumerate(r0["steps"])))
+    return ok, ("f32: loss 1e-5 rel at each step, the first step's "
+                "gradient 1e-5 rel Frobenius a leaf, its params 1e-5 + "
+                "1e-5 |p| where |g| >= 1e-6, 2 lr a step everywhere "
+                f"(compare_f32); by step: {r0['steps']}")
+
+
 def gang_rank_main(rank, world, backend, init_method, cases, results):
     """A rank of a gang phase: under gloo every rank on card 0 (phase
     12(b)), under NCCL rank r on card r (``--nccl-gang``).  For each
@@ -1401,9 +1457,7 @@ def gang_rank_main(rank, world, backend, init_method, cases, results):
         from dcos_commons_tpu_torch.parallel.mesh import (
             BATCH_AXES, MeshSpec, make_mesh,
         )
-        from dcos_commons_tpu_torch.parallel.sharding import (
-            timed_collectives, unshard,
-        )
+        from dcos_commons_tpu_torch.parallel.sharding import unshard
         from dcos_commons_tpu_torch.utils.tree import tree_leaves
 
         torch.cuda.set_device(rank if backend == "nccl" else 0)
@@ -1447,19 +1501,8 @@ def gang_rank_main(rank, world, backend, init_method, cases, results):
             torch.cuda.synchronize()
             launches = {k: s.inner.launches for k, s in logs.items()}
             shapes = {k: sorted(s.shapes, key=str) for k, s in logs.items()}
-            # the step's time, and its time in collectives (each one
-            # bracketed by synchronisations while timed)
-            dist.barrier()
-            t0 = time.perf_counter()
-            step(params, tokens, targets)
-            torch.cuda.synchronize()
-            step_ms = (time.perf_counter() - t0) * 1e3
-            dist.barrier()
-            with timed_collectives() as coll:
-                t0 = time.perf_counter()
-                step(params, tokens, targets)
-                torch.cuda.synchronize()
-                timed_ms = (time.perf_counter() - t0) * 1e3
+            step_ms, timed_ms, coll = time_gang_step(step, params, tokens,
+                                                     targets)
             del params, step
             entry = dict(label=label, dtype=str(dtype), layers=layers,
                          seq=seq, rank=rank, losses=losses,
@@ -1498,43 +1541,13 @@ def phase_gang(tag, world, backend, layouts, deadline_s):
     one-process step and the kernels' launches on each rank's rows and
     h/tp heads; returns (launches by kernel summed over the ranks,
     shapes).  Phase 12(b) is two processes on the one card over gloo."""
-    import multiprocessing
-
     seq = int(TRAIN_ENV["SEQ_LEN"])
     cases = [(label, extra, fields, dtype, layers, s)
              for dtype, layers, s in ((torch.bfloat16, GANG_LAYERS, seq),
                                       (torch.float32, 2, 256))
              for label, extra, fields in layouts]
-    if backend == "nccl":
-        init_method = f"tcp://127.0.0.1:{free_port()}"
-    else:
-        store = os.path.join(ROOT, "build", "smoke", "gang_store")
-        if os.path.exists(store):
-            os.remove(store)
-        init_method = f"file://{store}"
-    ctx = multiprocessing.get_context("spawn")
-    results = ctx.Queue()
-    procs = [ctx.Process(target=gang_rank_main,
-                         args=(r, world, backend, init_method, cases,
-                               results))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    reports = {}
-    try:
-        end = time.monotonic() + deadline_s
-        while len(reports) < world:
-            rank, report, error = results.get(
-                timeout=max(1.0, end - time.monotonic()))
-            if error is not None:
-                raise AssertionError(f"{tag} rank {rank} failed:\n{error}")
-            reports[rank] = report
-    finally:
-        for p in procs:
-            p.join(timeout=30)
-            if p.is_alive():
-                p.kill()
-                p.join()
+    reports = spawn_ranks(gang_rank_main, world, backend, (cases,),
+                          deadline_s, tag)
     launches = {n: 0 for n in ("K1", "K2", "K3", "K4")}
     shapes = {n: set() for n in launches}
     for runs in zip(*(reports[r] for r in range(world))):
@@ -1567,15 +1580,7 @@ def phase_gang(tag, world, backend, layouts, deadline_s):
                 raise AssertionError(f"{tag} {label}: the ranks' losses "
                                      "differ")
         if f32:
-            first = r0["steps"][0]
-            ok = (r0["loss_rel"] <= 1e-5 and first["grad_rel"] <= 1e-5
-                  and first["apart"] == 0
-                  and all(st["all"] <= 2 * LR * (k + 1) * (1 + 1e-4)
-                          for k, st in enumerate(r0["steps"])))
-            tol = ("f32: loss 1e-5 rel at each step, the first step's "
-                   "gradient 1e-5 rel Frobenius a leaf, its params 1e-5 + "
-                   "1e-5 |p| where |g| >= 1e-6, 2 lr a step everywhere "
-                   f"(compare_f32); by step: {r0['steps']}")
+            ok, tol = judge_f32(r0)
         else:
             ok = r0["loss_rel"] <= GANG_BF16_LOSS_RTOL
             tol = (f"bf16: loss {GANG_BF16_LOSS_RTOL} rel, params max diff "
@@ -2079,6 +2084,342 @@ def phase_gang_serving(tag, world, backend, sandbox, router_phase,
     return launches, shapes
 
 
+# -- phase 15: long context -------------------------------------------------
+
+# phase 15's layouts: (label, "ring", "ulysses" or "pp", MeshSpec fields,
+# the bf16 global batch, the pipeline's microbatches)
+LONG_LAYOUTS = (
+    ("ulysses sp2", "ulysses", {"sp": 2}, 1, 0),
+    ("ring sp2", "ring", {"sp": 2}, 1, 0),
+    ("pp2", "pp", {"pp": 2}, 4, 4),
+)
+# --nccl-gang on four cards: a context of 8192 over sp4, Ulysses under
+# tp, and the dryrun's pp x dp
+NCCL4_LONG_LAYOUTS = (
+    ("ulysses sp4", "ulysses", {"sp": 4}, 1, 0),
+    ("ring sp4", "ring", {"sp": 4}, 1, 0),
+    ("ulysses sp2xtp2", "ulysses", {"sp": 2, "tp": 2}, 1, 0),
+    ("pp2xdp2", "pp", {"pp": 2, "dp": 2}, 4, 2),
+)
+LONG_SEQ = 2048           # each rank's positions in bf16 (sp2: 4096 in all)
+LONG_STEPS = 3            # bf16 sp steps; the pipeline and f32 take 2
+# 15(a): f32 (TF32 off) at the flagship's width, 2 layers, 512 positions
+# a rank, batch 2 (the pipeline in 2 microbatches)
+LONG_F32 = dict(layers=2, seq=512, batch=2, micro=2)
+
+
+def long_cases(layouts, dtype):
+    """The rank-side cases of ``layouts`` in ``dtype``: (label, kind,
+    MeshSpec fields, dtype, layers, positions a rank, global batch,
+    microbatches, steps); bf16 is 15(b)'s flagship, f32 15(a)'s."""
+    if dtype == torch.float32:
+        f = LONG_F32
+        return [(label, kind, fields, dtype, f["layers"], f["seq"],
+                 f["batch"], f["micro"], GANG_STEPS)
+                for label, kind, fields, _, _ in layouts]
+    return [(label, kind, fields, dtype, int(TRAIN_ENV["N_LAYERS"]),
+             LONG_SEQ, batch, micro,
+             GANG_STEPS if kind == "pp" else LONG_STEPS)
+            for label, kind, fields, batch, micro in layouts]
+
+
+def long_config(kind, dtype, layers, seq):
+    """The flagship (bench.py ``flagship_config``: full remat, the last
+    layer stored) at ``layers`` and a global sequence of ``seq``, with
+    the recipe ``kind`` names (none for the pipeline or ``None``)."""
+    from dcos_commons_tpu_torch.models import config_from_env
+
+    return config_from_env(
+        dict(TRAIN_ENV, N_LAYERS=str(layers), SEQ_LEN=str(seq)),
+        dtype=dtype, no_remat_layers=NO_REMAT_LAYERS,
+        use_ring_attention=kind == "ring",
+        use_ulysses_attention=kind == "ulysses")
+
+
+def long_launches(kind, config, fields, rank_index, n_micro):
+    """K1-K4 launches of one step on a rank: a sp rank's are one
+    process's (the ring's without K2-K4); a pipeline rank runs its stage
+    of L layers on each of the M + S - 1 ticks, forward (K1 twice a
+    layer, K2 once) and backward (the recompute of its L - k
+    checkpointed layers, K3 and K4 once a layer), and the last rank the
+    final norm."""
+    if kind != "pp":
+        per = launches_per_step(config.n_layers, config.no_remat_layers)
+        return dict(per, K2=0, K3=0, K4=0) if kind == "ring" else per
+    stages = fields["pp"]
+    ticks = n_micro + stages - 1
+    layers = config.n_layers // stages
+    recomputed = layers - min(config.no_remat_layers, layers)
+    return {"K1": ticks * 2 * (layers + recomputed)
+            + (rank_index == stages - 1),
+            "K2": ticks * (layers + recomputed),
+            "K3": ticks * layers, "K4": ticks * layers}
+
+
+def long_rank_main(rank, world, backend, init_method, cases, probe,
+                   results):
+    """A rank of phase 15 (gloo, every rank on card 0) or of
+    ``--nccl-gang``'s long-context layouts (NCCL, rank r on card r).
+    With ``probe``, first ``collective_bandwidth`` over the world and,
+    on rank 0, ``single_chip_rooflines``.  Then each case from the full
+    seeded init: a sp layout through ``make_train_step(mesh=...)`` on
+    the rank's rows and sequence chunk, the pipeline through
+    ``pipeline_value_and_grad`` and AdamW on the stage's leaves; its
+    steps, one timed step and one with the collectives timed.  Rank 0
+    also runs one process on the whole sequence and compares.  Puts
+    (rank, report or None, error)."""
+    import traceback
+
+    try:
+        import torch.distributed as dist
+
+        from dcos_commons_tpu_torch.models.transformer import (
+            adamw, init_params, leaf_rules, make_train_step,
+            pipeline_param_specs, pipeline_value_and_grad, shard_params,
+            unshard_params,
+        )
+        from dcos_commons_tpu_torch.parallel.collectives import (
+            collective_bandwidth, single_chip_rooflines,
+        )
+        from dcos_commons_tpu_torch.parallel.distributed import init_gang
+        from dcos_commons_tpu_torch.parallel.mesh import (
+            BATCH_AXES, MeshSpec, make_mesh,
+        )
+        from dcos_commons_tpu_torch.parallel.sharding import unshard
+        from dcos_commons_tpu_torch.utils.tree import tree_leaves
+
+        torch.cuda.set_device(rank if backend == "nccl" else 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        init_gang(init_method, world, rank, backend, timeout_s=300)
+        logs = install_shape_logs()
+        report = {"cases": []}
+        if probe:
+            report["bandwidth"] = collective_bandwidth(
+                make_mesh(MeshSpec(dp=world)), "dp", payload_mb=64.0,
+                iters=20)
+            if rank == 0:
+                report["rooflines"] = single_chip_rooflines()
+            dist.barrier()
+        refs = {}
+        for (label, kind, fields, dtype, layers, seq, batch, n_micro,
+             steps) in cases:
+            mesh = make_mesh(MeshSpec(**fields))
+            sp = mesh.size(("sp",))
+            config = long_config(kind, dtype, layers, seq * sp)
+            f32 = dtype == torch.float32
+            specs = pipeline_param_specs(config) if kind == "pp" else None
+            params = shard_params(init_params(config, seed=0, device="cuda"),
+                                  config, mesh, rules=specs)
+            optimizer = adamw(params, LR)
+            if kind == "pp":
+                def step(params, tokens, targets):
+                    loss, grads = pipeline_value_and_grad(
+                        config, params, tokens, targets, n_micro, mesh)
+                    leaves = tree_leaves(params)
+                    for p, g in zip(leaves, tree_leaves(grads)):
+                        p.grad = g
+                    optimizer.step()
+                    for p in leaves:
+                        p.grad = None
+                    return loss
+            else:
+                step = make_train_step(config, optimizer, mesh=mesh)
+            applied = []
+            if f32:
+                # the gradients each step applies, gathered to full size
+                rules = leaf_rules(config, rules=specs)
+                hook = optimizer.register_step_pre_hook(
+                    lambda *_: applied.append([
+                        unshard(p.grad, d, mesh) for p, d in zip(
+                            tree_leaves(params), rules)]))
+            tokens, targets = gang_batch(config, batch)
+            n, i = mesh.size(BATCH_AXES), mesh.index(BATCH_AXES)
+            j, chunk = mesh.index(("sp",)), seq
+            rows = slice(i * batch // n, (i + 1) * batch // n)
+            cols = slice(j * chunk, (j + 1) * chunk)
+            tokens = tokens[rows, cols].contiguous()
+            targets = targets[rows, cols].contiguous()
+            torch.cuda.synchronize()
+            for shape_log in logs.values():
+                shape_log.reset()
+            losses, fulls = [], []
+            for _ in range(steps):
+                losses.append(float(step(params, tokens, targets)))
+                if f32:
+                    fulls.append(tree_leaves(unshard_params(
+                        params, config, mesh, rules=specs)))
+            if f32:
+                hook.remove()
+            torch.cuda.synchronize()
+            launches = {k: s.inner.launches for k, s in logs.items()}
+            shapes = {k: sorted(s.shapes, key=str) for k, s in logs.items()}
+            step_ms, timed_ms, coll = time_gang_step(step, params, tokens,
+                                                     targets)
+            del params, step, optimizer
+            torch.cuda.empty_cache()
+            entry = dict(label=label, kind=kind, dtype=str(dtype),
+                         layers=layers, seq=seq, context=seq * sp,
+                         batch=batch, micro=n_micro, rank=rank,
+                         pp_index=mesh.index(("pp",)), losses=losses,
+                         launches=launches, shapes=shapes, step_ms=step_ms,
+                         timed_ms=timed_ms,
+                         collective_ms=coll["seconds"] * 1e3,
+                         collectives=coll["calls"])
+            if rank == 0:
+                key = (str(dtype), layers, seq * sp, batch, steps)
+                if key not in refs:
+                    ref_losses, _, trace = one_process_steps(
+                        long_config(None, dtype, layers, seq * sp), steps,
+                        batch, trace=f32)
+                    refs[key] = (ref_losses, trace)
+                ref_losses, (after, grads) = refs[key]
+                entry["ref_losses"] = ref_losses
+                entry["loss_rel"] = max(abs(a - b) / abs(b)
+                                        for a, b in zip(losses, ref_losses))
+                if f32:
+                    entry["steps"] = compare_f32(fulls, after, applied,
+                                                 grads)
+            del fulls, applied
+            torch.cuda.empty_cache()
+            report["cases"].append(entry)
+            dist.barrier()
+        dist.destroy_process_group()
+        results.put((rank, report, None))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        results.put((rank, None, traceback.format_exc()))
+
+
+def spawn_ranks(target, world, backend, args, deadline_s, tag):
+    """``target(rank, world, backend, init_method, *args, results)`` in
+    ``world`` spawned processes (NCCL at a free local port, gloo over a
+    file store under build/smoke); returns {rank: report}.  Every
+    process is joined, or killed, before it returns."""
+    import multiprocessing
+
+    if backend == "nccl":
+        init_method = f"tcp://127.0.0.1:{free_port()}"
+    else:
+        store = os.path.join(ROOT, "build", "smoke", "gang_store")
+        if os.path.exists(store):
+            os.remove(store)
+        init_method = f"file://{store}"
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=target,
+                         args=(r, world, backend, init_method, *args,
+                               results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    reports = {}
+    try:
+        end = time.monotonic() + deadline_s
+        while len(reports) < world:
+            rank, report, error = results.get(
+                timeout=max(1.0, end - time.monotonic()))
+            if error is not None:
+                raise AssertionError(f"{tag} rank {rank} failed:\n{error}")
+            reports[rank] = report
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return reports
+
+
+def phase_long(tag, world, backend, cases, deadline_s, probe=False):
+    """Long-context training in ``world`` spawned processes: each case
+    against one process on the whole sequence (bf16: the loss within
+    ``GANG_BF16_LOSS_RTOL``; f32: as ``compare_f32`` says), the kernels'
+    launches on each rank (Ulysses: K2-K4 on the rank's heads over the
+    whole context; the ring: none of them), the step and its split into
+    collectives and compute logged.  With ``probe``, the collectives'
+    bus GB/s and card 0's rooflines are logged first.  Returns
+    (launches by kernel summed over the ranks, shapes)."""
+    reports = spawn_ranks(long_rank_main, world, backend, (cases, probe),
+                          deadline_s, tag)
+    if probe:
+        bw = reports[0]["bandwidth"]
+        log(f"{tag} collective_bandwidth over {world} ranks ({backend}, "
+            f"{bw['payload_mb_per_chip']} MB a rank, {bw['iters']:.0f} "
+            "chained calls, bus GB/s a rank): " + ", ".join(
+                f"{k[:-len('_gbps_per_chip')]} {v:.1f}" for k, v in
+                bw.items() if k.endswith("_gbps_per_chip")))
+        rl = reports[0]["rooflines"]
+        log(f"{tag} single_chip_rooflines on card 0: HBM copy "
+            f"{rl['hbm_copy_gbps']:.1f} GB/s, bf16 matmul "
+            f"{rl['matmul_bf16_tflops']:.1f} TFLOP/s")
+    launches = {n: 0 for n in ("K1", "K2", "K3", "K4")}
+    shapes = {n: set() for n in launches}
+    for runs in zip(*(reports[r]["cases"] for r in range(world))):
+        r0 = runs[0]
+        label, kind, f32 = (r0["label"], r0["kind"],
+                            r0["dtype"] == "torch.float32")
+        fields = next(c[2] for c in cases if c[0] == label)
+        config = long_config(kind, torch.float32 if f32 else torch.bfloat16,
+                             r0["layers"], r0["context"])
+        tp = fields.get("tp", 1)
+        rows = r0["batch"] // (fields.get("dp", 1) * fields.get("dcn", 1)
+                               * fields.get("fsdp", 1))
+        heads = config.n_heads // tp
+        if kind == "ulysses":
+            want_attn = {(rows * heads // fields["sp"], r0["context"],
+                          r0["context"], config.head_dim, True,
+                          str(config.dtype))}
+        elif kind == "pp":
+            want_attn = {(rows // r0["micro"] * heads, r0["seq"], r0["seq"],
+                          config.head_dim, True, str(config.dtype))}
+        else:
+            want_attn = set()
+        steps = len(r0["losses"])
+        for r in runs:
+            per = long_launches(kind, config, fields, r["pp_index"],
+                                r0["micro"])
+            want = {n: per[n] * steps for n in launches}
+            if r["launches"] != want:
+                raise AssertionError(f"{tag} {label} rank {r['rank']}: "
+                                     f"launches {r['launches']}, want {want}")
+            for n in ("K2", "K3", "K4"):
+                got = {tuple(x[:5]) + (str(x[5]),) for x in r["shapes"][n]}
+                if got != want_attn:
+                    raise AssertionError(f"{tag} {label} rank {r['rank']}: "
+                                         f"{n} at {got}, want {want_attn}")
+            for n in launches:
+                launches[n] += r["launches"][n]
+                shapes[n].update(tuple(x) for x in r["shapes"][n])
+            if r["losses"] != r0["losses"]:
+                raise AssertionError(f"{tag} {label}: the ranks' losses "
+                                     "differ")
+        if f32:
+            ok, tol = judge_f32(r0)
+        else:
+            ok = r0["loss_rel"] <= GANG_BF16_LOSS_RTOL
+            tol = f"bf16: loss {GANG_BF16_LOSS_RTOL} rel"
+        step_ms = max(r["step_ms"] for r in runs)
+        coll_ms = max(r["collective_ms"] for r in runs)
+        timed_ms = max(r["timed_ms"] for r in runs)
+        tokens = r0["batch"] * r0["context"]
+        log(f"{tag} {label} {'f32' if f32 else 'bf16'} [{r0['layers']} "
+            f"layers, batch {r0['batch']}, context {r0['context']}, "
+            f"{r0['seq']} positions a rank"
+            + (f", {r0['micro']} microbatches" if kind == "pp" else "")
+            + f"]: losses {r0['losses']} vs one process "
+            f"{r0['ref_losses']} (rel {r0['loss_rel']:.3e}); {tol}; step "
+            f"{step_ms:.1f} ms ({tokens / step_ms * 1e3:,.0f} tokens/s); "
+            f"timed step {timed_ms:.1f} ms = collectives {coll_ms:.1f} ms "
+            f"({100 * coll_ms / timed_ms:.1f}%, {r0['collectives']} calls) "
+            f"+ compute {timed_ms - coll_ms:.1f} ms; K2-K4 at "
+            f"{sorted(want_attn) or 'none'}; launches a rank "
+            f"{r0['launches']}")
+        if not ok:
+            raise AssertionError(f"{tag} {label}: the gang and one process "
+                                 "differ beyond the tolerance")
+    return launches, shapes
+
+
 def check_gang_shapes(shapes, gen):
     """K1 and K2 against their plain versions at every shape a gang rank
     launched them at.  Returns the largest max-abs error of each."""
@@ -2134,6 +2475,14 @@ def nccl_gang_main(kind, smi):
         "12(c)", n, "nccl", os.path.join(ROOT, "build", "smoke"), False,
         watchdog)
     log(f"12(c) tp{n} serving launches over the ranks {launches}")
+    # long context over NCCL, after the collective probe and the rooflines
+    watchdog.phase(f"15 long context on {n} cards", 600)
+    launches, _ = phase_long(
+        f"15 NCCL x{n}", n, "nccl",
+        long_cases({2: LONG_LAYOUTS, 4: NCCL4_LONG_LAYOUTS}[n],
+                   torch.bfloat16), 560,
+        probe=True)
+    log(f"15 NCCL x{n} launches over the ranks {launches}")
     watchdog.stop()
     log(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2291,14 +2640,23 @@ def main():
     watchdog.phase("13b K1 and K2 at the gang's shapes", 300)
     for name, err in check_gang_shapes(serve_gang_shapes, gen).items():
         errs[name] = max(errs[name], err)
+    # phase 15: long context, two processes on the one card over gloo:
+    # (a) f32 at 2 layers, (b) the bf16 flagship, Ulysses and ring over
+    # sp2 and the pipeline over pp2
+    watchdog.phase("15 long context", 300)
+    long_counts, long_shapes = phase_long(
+        "15", 2, "gloo", long_cases(LONG_LAYOUTS, torch.float32)
+        + long_cases(LONG_LAYOUTS, torch.bfloat16), 280)
     launches = {n: slot_launches[n] + paged_launches[n] + train_launches[n]
                 + moe_launches[n] + moe_train_launches[n]
                 + gang_one_launches[n] + gang_two_launches[n]
-                + serve_gang_launches[n] for n in logs}
+                + serve_gang_launches[n] + long_counts[n] for n in logs}
     for n in logs:
-        train_shapes[n] |= moe_train_shapes[n] | gang_two_shapes[n]
+        train_shapes[n] |= (moe_train_shapes[n] | gang_two_shapes[n]
+                            | long_shapes[n])
 
-    # phase 8, last: every kernel at every shape the train paths gave it.
+    # phase 8, last: every kernel at every shape the train paths gave it
+    # (phase 15's Ulysses and pipeline shapes among them).
     # The kernels line times each at the flagship training shape
     # (bench.py batch 12: K1 [24576, 2048], K2-K4 [192, 2048, 2048, 128]),
     # which the timed step launched; K3/K4 were checked there in 2b

@@ -1,9 +1,10 @@
 """The flagship transformer in PyTorch: forward, KV-cache decode (slot
 pool and paged arena), int8 weights, the train step (loss, remat,
 gradient accumulation, AdamW) on one device or sharded over a mesh
-(``sharding_rules``), the mixture of experts, and the bridge that
-carries weights and train state between the JAX package and the
-port."""
+(``sharding_rules``; ring or Ulysses attention over ``sp``), the GPipe
+pipeline over ``pp`` (``pipeline_loss_fn``), the mixture of experts,
+and the bridge that carries weights and train state between the JAX
+package and the port."""
 
 from dcos_commons_tpu_torch.models.bridge import (
     params_from_jax,
@@ -43,6 +44,10 @@ from dcos_commons_tpu_torch.models.transformer import (
     loss_fn,
     make_train_step,
     param_shardings,
+    pipeline_forward,
+    pipeline_loss_fn,
+    pipeline_param_specs,
+    pipeline_value_and_grad,
     shard_params,
     sharding_rules,
     train_state,
@@ -73,6 +78,10 @@ __all__ = [
     "param_shardings",
     "params_from_jax",
     "params_to_jax",
+    "pipeline_forward",
+    "pipeline_loss_fn",
+    "pipeline_param_specs",
+    "pipeline_value_and_grad",
     "prefill",
     "prefill_into_slot",
     "quantize_params_int8",

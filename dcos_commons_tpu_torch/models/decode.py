@@ -52,7 +52,6 @@ from dcos_commons_tpu_torch.models.transformer import (
     _ffn_block,
     _logits,
     _project,
-    check_supported,
     layer_params,
 )
 from dcos_commons_tpu_torch.ops.attention import flash_attention
@@ -199,7 +198,6 @@ def _prefill_trunk(config, params, tokens, write, mesh=None):
     (kernel K2 on the card, on this rank's heads); ``write(i, k, v)``
     stores layer i's captured K/V [b, s, kv, hd].  Returns the final
     hidden states [b, s, d]."""
-    check_supported(config)
     check_serving_mesh(config, mesh)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
@@ -333,7 +331,6 @@ def _decode_trunk(config, params, cache, tokens, positions, store, view,
     ``store(i, name, value)`` the new K/V, ``view(i, name)`` the attended
     [b, L, ...] cache view, attend, FFN.  Returns the final hidden
     states."""
-    check_supported(config)
     check_serving_mesh(config, mesh)
     quantized = "k_scale" in cache
     kv_map = _kv_map(config, mesh, tokens.device)

@@ -40,9 +40,14 @@ average the gradients.  Each rank computes the full seeded init and
 keeps its block (``shard_params``), so a gang starts from the
 single-device init bit for bit; AdamW runs on the blocks.
 
-Not in this slice, and raising ``NotImplementedError``: ring and
-Ulysses sequence parallelism and a mesh with ``sp`` or ``pp`` above 1
-(ROADMAP queue 1, "MoE and long-context").
+Long context: with ``use_ring_attention`` or ``use_ulysses_attention``
+every attention runs its recipe over the mesh's ``sp`` ranks
+(``parallel/ring.py``, ``parallel/ulysses.py``), each rank on its chunk
+of the sequence, RoPE at the chunk's global positions; the train step
+averages the loss and the gradients over ``sp`` as over the batch
+axes.  Pipeline parallelism is ``pipeline_loss_fn`` (GPipe over ``pp``,
+``parallel/pipeline.py``), as in the reference, whose
+``make_train_step`` has no pipeline either.
 """
 
 from __future__ import annotations
@@ -64,12 +69,19 @@ from dcos_commons_tpu_torch.models.moe import (
 from dcos_commons_tpu_torch.models.quantize import dequantize_weight as dq
 from dcos_commons_tpu_torch.ops.attention import flash_attention
 from dcos_commons_tpu_torch.ops.rmsnorm import rms_norm
-from dcos_commons_tpu_torch.parallel.mesh import Mesh
-from dcos_commons_tpu_torch.parallel.pipeline import split_microbatches
+from dcos_commons_tpu_torch.parallel.mesh import DATA_AXES, Mesh
+from dcos_commons_tpu_torch.parallel.pipeline import (
+    last_stage_value,
+    merge_microbatches,
+    pipeline_apply,
+    split_microbatches,
+)
+from dcos_commons_tpu_torch.parallel.ring import ring_attention
 from dcos_commons_tpu_torch.parallel.sharding import (
     TP,
     Dims,
     P,
+    all_reduce,
     batch_mean,
     copy_to,
     gather_fsdp,
@@ -80,6 +92,7 @@ from dcos_commons_tpu_torch.parallel.sharding import (
     vocab_parallel_embed,
     vocab_parallel_nll,
 )
+from dcos_commons_tpu_torch.parallel.ulysses import ulysses_attention
 from dcos_commons_tpu_torch.utils.tree import (
     tree_flatten,
     tree_leaves,
@@ -146,6 +159,11 @@ class TransformerConfig:
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
 
+    @property
+    def sequence_parallel(self) -> bool:
+        """Whether attention runs a sequence-parallel recipe."""
+        return self.use_ring_attention or self.use_ulysses_attention
+
 
 def config_from_env(env: Dict[str, str], **overrides) -> TransformerConfig:
     """The scheduler-env -> TransformerConfig contract: the same env
@@ -164,25 +182,24 @@ def config_from_env(env: Dict[str, str], **overrides) -> TransformerConfig:
     return TransformerConfig(**fields)
 
 
-def check_supported(config: TransformerConfig) -> None:
-    """Raise for what this slice of the port does not run."""
-    if config.use_ring_attention or config.use_ulysses_attention:
-        raise NotImplementedError(
-            "ring/Ulysses sequence parallelism is not ported yet: "
-            "ROADMAP queue 1, 'MoE and long-context'"
-        )
-
-
 def check_mesh(config: TransformerConfig, mesh: Mesh) -> None:
-    """Raise for a mesh the sharded step does not run: sequence or
-    pipeline parallelism (not ported), or a tp that does not split the
-    heads into whole blocks of each rank's own KV heads."""
+    """Raise for a mesh the sharded step does not run: pipeline
+    parallelism (``pipeline_loss_fn``), a sequence split with no recipe
+    to attend across it, or a tp that does not split the heads into
+    whole blocks of each rank's own KV heads, or one Ulysses cannot
+    split further over sp."""
     spec = mesh.spec
-    if spec.sp > 1 or spec.pp > 1:
+    if spec.pp > 1:
         raise NotImplementedError(
-            f"a mesh with sp={spec.sp}, pp={spec.pp}: sequence and "
-            "pipeline parallelism are not ported yet: ROADMAP queue 1, "
-            "'MoE and long-context'"
+            f"a mesh with pp={spec.pp}: make_train_step has no pipeline, "
+            "as the reference's has none; pipelined training takes the "
+            "gradients of pipeline_loss_fn (pipeline_value_and_grad)"
+        )
+    if spec.sp > 1 and not config.sequence_parallel:
+        raise NotImplementedError(
+            f"a mesh with sp={spec.sp} and no sequence-parallel recipe: "
+            "set use_ring_attention or use_ulysses_attention (the "
+            "reference's GSPMD would gather the sequence instead)"
         )
     if config.n_kv_heads % spec.tp or config.n_heads % spec.tp:
         raise ValueError(
@@ -194,6 +211,11 @@ def check_mesh(config: TransformerConfig, mesh: Mesh) -> None:
         raise ValueError(
             f"n_experts {config.n_experts} not divisible by ep={spec.ep}"
         )
+    if config.use_ulysses_attention and (config.n_heads // spec.tp) % spec.sp:
+        raise ValueError(
+            f"ulysses needs each tp rank's heads ({config.n_heads // spec.tp})"
+            f" divisible by the sp axis size ({spec.sp})"
+        )
 
 
 def init_params(config: TransformerConfig, seed: int = 0,
@@ -202,7 +224,6 @@ def init_params(config: TransformerConfig, seed: int = 0,
     ``device`` (default ``cuda``) with a generator of that device.
     The draws differ from the JAX package's for the same seed; carry
     JAX weights across with ``models.bridge.params_from_jax``."""
-    check_supported(config)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, h, kv, hd, f = (
@@ -303,13 +324,14 @@ def param_shardings(config: TransformerConfig) -> Params:
     return walk(_path_tree(config))
 
 
-def leaf_rules(config: TransformerConfig, train_state: bool = False
-               ) -> List[Dims]:
+def leaf_rules(config: TransformerConfig, train_state: bool = False,
+               rules: Optional[Dict[str, Dims]] = None) -> List[Dims]:
     """The rule of every leaf of the param tree, in ``tree_leaves``
-    order; with ``train_state``, of every leaf of ``train_state``'s tree
-    (AdamW's moments laid out as their params, the step count
-    replicated: the reference's ``opt_leaf_sharding``)."""
-    rules = sharding_rules(config)
+    order, by ``rules`` (default ``sharding_rules``); with
+    ``train_state``, of every leaf of ``train_state``'s tree (AdamW's
+    moments laid out as their params, the step count replicated: the
+    reference's ``opt_leaf_sharding``)."""
+    rules = rules or sharding_rules(config)
     paths = _path_tree(config)
     tree = paths if not train_state else {
         "params": paths, "opt_state": ((None, paths, paths), (), ()),
@@ -319,11 +341,12 @@ def leaf_rules(config: TransformerConfig, train_state: bool = False
     return [()] + leaves if train_state else leaves
 
 
-def shard_params(params: Params, config: TransformerConfig, mesh: Mesh
-                 ) -> Params:
+def shard_params(params: Params, config: TransformerConfig, mesh: Mesh,
+                 rules: Optional[Dict[str, Dims]] = None) -> Params:
     """This rank's block of every leaf of a full param tree, as tensors
     of its own (what ``device_put`` with the rule's ``NamedSharding``
-    leaves on one device).
+    leaves on one device), by ``rules`` (default ``sharding_rules``;
+    ``pipeline_param_specs`` for a pipeline stage).
 
     Two cases only a serving gang meets (``check_mesh`` refuses the
     second for training):
@@ -335,7 +358,7 @@ def shard_params(params: Params, config: TransformerConfig, mesh: Mesh
     - tp not dividing ``n_kv_heads``: ``wk`` and ``wv`` are held whole
       by every rank, as the reference's ``kv_spec`` replicates the
       cache, and each rank computes every KV head."""
-    rules = sharding_rules(config)
+    rules = dict(rules or sharding_rules(config))
     if config.n_kv_heads % mesh.size(TP):
         for name in ("layers/wk", "layers/wv"):
             rules[name] = P(None, "fsdp", None)
@@ -354,13 +377,15 @@ def shard_params(params: Params, config: TransformerConfig, mesh: Mesh
     return walk(params, "")
 
 
-def unshard_params(params: Params, config: TransformerConfig, mesh: Mesh
-                   ) -> Params:
-    """The full param tree from every rank's blocks (collective: every
-    rank calls it)."""
+def unshard_params(params: Params, config: TransformerConfig, mesh: Mesh,
+                   rules: Optional[Dict[str, Dims]] = None) -> Params:
+    """The full param tree from every rank's blocks, laid out by
+    ``rules`` (default ``sharding_rules``; collective: every rank calls
+    it)."""
     leaves, structure = tree_flatten(params)
     return tree_unflatten(structure, [
-        unshard(t, dims, mesh) for t, dims in zip(leaves, leaf_rules(config))
+        unshard(t, dims, mesh)
+        for t, dims in zip(leaves, leaf_rules(config, rules=rules))
     ])
 
 
@@ -452,10 +477,21 @@ def _attn_residual(config: TransformerConfig, layer, x, attn, mesh=None):
     return x + reduce_from(attn @ dq(layer["wo"], x.dtype), mesh, TP)
 
 
+def _attention(config: TransformerConfig, q, k, v, mesh=None):
+    """Causal attention of ``[b, heads, s, head_dim]`` operands: the
+    config's sequence-parallel recipe over the mesh's sp ranks (none: an
+    axis of one rank), or flash attention."""
+    if config.use_ring_attention:
+        return ring_attention(q, k, v, mesh, config.sp_axis)
+    if config.use_ulysses_attention:
+        return ulysses_attention(q, k, v, mesh, config.sp_axis)
+    return flash_attention(q, k, v, causal=True)
+
+
 def _attention_block(config: TransformerConfig, layer, x, positions,
                      mesh=None):
-    attn = flash_attention(*_qkv(config, layer, x, positions, mesh),
-                           causal=True)
+    attn = _attention(config, *_qkv(config, layer, x, positions, mesh),
+                      mesh)
     return _attn_residual(config, layer, x, attn, mesh)
 
 
@@ -527,7 +563,7 @@ def _save_attn_layer(config: TransformerConfig, layers, i: int, x,
                           _attn_residual(config, layer, x, attn, mesh),
                           mesh=mesh)
 
-    attn = flash_attention(*_checkpointed(qkv, x), causal=True)
+    attn = _attention(config, *_checkpointed(qkv, x), mesh)
     return _checkpointed(rest, x, attn)
 
 
@@ -596,11 +632,16 @@ def _trunk(
 ):
     """tokens [b, s] -> (final hidden states [b, s, d], MoE aux summed
     over layers; 0.0 when dense).  Under a mesh, ``embed`` is
-    ``_embed_block``'s and the lookup is vocab-parallel over tp."""
-    check_supported(config)
+    ``_embed_block``'s and the lookup is vocab-parallel over tp; under a
+    sequence-parallel recipe ``tokens`` are the rank's chunk of the
+    sequence, whose RoPE positions start at its global offset."""
     b, s = tokens.shape
     if positions is None:
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        start = 0
+        if config.sequence_parallel and mesh is not None:
+            start = mesh.index((config.sp_axis,)) * s
+        positions = torch.arange(start, start + s,
+                                 device=tokens.device).expand(b, s)
     if mesh is None:
         x = params["embed"][tokens]
     elif mesh.size(TP) > 1:
@@ -662,8 +703,9 @@ def loss_fn(
     targets: torch.Tensor, mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """Mean NLL (plus the MoE aux term).  Under a mesh: ``params`` are
-    this rank's blocks and ``tokens``/``targets`` its rows, and the loss
-    is the mean over its rows, the same on every tp and ep rank."""
+    this rank's blocks and ``tokens``/``targets`` its rows (and under a
+    sequence-parallel recipe its chunk of the sequence), and the loss is
+    the mean over them, the same on every tp and ep rank."""
     embed = None if mesh is None else _embed_block(params, mesh)
     x, aux = _trunk(config, params, tokens, mesh=mesh, embed=embed)
     loss = _nll_mean(config, params, x, targets, mesh, embed)
@@ -671,6 +713,98 @@ def loss_fn(
         # switch-transformer load-balancing term, averaged per layer
         loss = loss + config.moe_aux_weight * aux / config.n_layers
     return loss
+
+
+def pipeline_param_specs(config: TransformerConfig) -> Dict[str, Dims]:
+    """Param path -> rule of a pipeline stage: every ``layers`` leaf split
+    over pp on its leading (layer) axis, everything else replicated
+    (the reference's ``pipeline_param_specs``, keyed as
+    ``sharding_rules``; ``shard_params(..., rules=)`` takes it)."""
+    return {
+        path: (("pp",) if path.startswith("layers/") else (),)
+        + ((),) * (len(rule) - 1)
+        for path, rule in sharding_rules(config).items()
+    }
+
+
+def _pipeline_trunk(config: TransformerConfig, params: Params,
+                    tokens: torch.Tensor, n_micro: int, mesh: Optional[Mesh],
+                    axis: str) -> torch.Tensor:
+    """Embedding and the pipelined layer stack: ``[n_micro, b/n_micro, s,
+    d]``, the outputs on the last pp rank (zeros elsewhere)."""
+    if config.n_experts > 0:
+        raise NotImplementedError(
+            "MoE layers are not pipelined yet: run ep x dp/fsdp/tp "
+            "meshes for the MoE flagship"
+        )
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b // n_micro, s)
+    micro = split_microbatches(params["embed"][tokens].to(config.dtype),
+                               n_micro)
+    return pipeline_apply(
+        lambda layers, x: _layer_scan(config, layers, x, positions)[0],
+        params["layers"], micro, mesh, axis)
+
+
+def pipeline_forward(config: TransformerConfig, params: Params,
+                     tokens: torch.Tensor, n_micro: int,
+                     mesh: Optional[Mesh], axis: str = "pp") -> torch.Tensor:
+    """Logits ``[b, s, vocab]`` (f32) with the layers pipelined over
+    ``axis`` in ``n_micro`` GPipe microbatches, on every rank (one
+    activation-sized all-reduce; training wants ``pipeline_loss_fn``).
+    ``params`` is this rank's stage (``shard_params`` with
+    ``pipeline_param_specs``)."""
+    out = _pipeline_trunk(config, params, tokens, n_micro, mesh, axis)
+    out = last_stage_value(out, mesh, axis)
+    return _logits(config, params, merge_microbatches(out))
+
+
+def pipeline_loss_fn(config: TransformerConfig, params: Params,
+                     tokens: torch.Tensor, targets: torch.Tensor,
+                     n_micro: int, mesh: Optional[Mesh], axis: str = "pp"
+                     ) -> torch.Tensor:
+    """Mean NLL of ``tokens``/``targets`` (this rank's rows) with the
+    layers pipelined over ``axis``, the same on every pp rank.  Only the
+    last rank computes the logits and the loss; the others read their
+    zeros (which keeps the pipeline's backward hops in their graphs,
+    ``parallel/pipeline.py``), and the loss is summed over ``axis`` with
+    an identity backward: one scalar all-reduce."""
+    out = merge_microbatches(
+        _pipeline_trunk(config, params, tokens, n_micro, mesh, axis))
+    n = 1 if mesh is None else mesh.size((axis,))
+    if n == 1 or mesh.index((axis,)) == n - 1:
+        local = _nll(_logits(config, params, out), targets).mean()
+    else:
+        local = out.float().sum() * 0.0
+    return reduce_from(local, mesh, (axis,))
+
+
+def pipeline_value_and_grad(config: TransformerConfig, params: Params,
+                            tokens: torch.Tensor, targets: torch.Tensor,
+                            n_micro: int, mesh: Mesh, axis: str = "pp"):
+    """(loss, gradients) of ``pipeline_loss_fn`` over the global batch:
+    the counterpart of ``jax.value_and_grad`` of the reference's
+    ``shard_map`` of ``pipeline_loss_fn`` with the loss ``pmean``-ed over
+    the batch axes.  Every rank calls it with its stage and its rows.
+    The replicated leaves (the tied ``embed``, read by rank 0's lookup
+    and the last rank's head, and ``final_norm``) have their gradients
+    summed over ``axis``; every gradient is then averaged over the data
+    axes.  The gradients come back in a tree shaped like ``params``."""
+    leaves, structure = tree_flatten(params)
+    loss = pipeline_loss_fn(config, params, tokens, targets, n_micro, mesh,
+                            axis)
+    # final_norm is read on the last rank only
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+        leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+    staged = [key == "layers" for key in sorted(params)
+              for _ in tree_leaves(params[key])]
+    n = mesh.size(DATA_AXES)
+    for j, (g, in_stage) in enumerate(zip(grads, staged)):
+        if not in_stage:
+            g = all_reduce(g.contiguous(), mesh.group((axis,)))
+        g = all_reduce(g.contiguous(), mesh.group(DATA_AXES))
+        grads[j] = g / n if n > 1 else g
+    return batch_mean(loss.detach(), mesh), tree_unflatten(structure, grads)
 
 
 def adamw(params: Params, lr: float = 3e-4) -> torch.optim.AdamW:
@@ -782,11 +916,14 @@ def make_train_step(
     the optimizer's leaves) are this rank's blocks (``shard_params``),
     ``tokens``/``targets`` its rows of the global batch (rows
     ``[i * B/n, (i + 1) * B/n)`` for its index i of n over
-    ``BATCH_AXES``).  The gradients of the global mean loss come back on
-    each rank's blocks (``reduce_gradients``), AdamW steps the blocks,
-    and the returned loss is the global batch's.  A mesh whose axes are
-    all 1 runs exactly the single-device step."""
-    check_supported(config)
+    ``BATCH_AXES``) and, under a sequence-parallel recipe, its chunk of
+    the sequence (positions ``[j * S/m, (j + 1) * S/m)`` for its index
+    j of m over ``sp``: the reference's ``batch_spec``).  The gradients
+    of the global mean loss come back on each rank's blocks
+    (``reduce_gradients``), AdamW steps the blocks, and the returned
+    loss is the global batch's.  A mesh whose axes are all 1 runs
+    exactly the single-device step.  ``check_mesh`` says which meshes
+    it refuses."""
     grad_accum = max(1, int(grad_accum))
     rules = None
     if mesh is not None:

@@ -11,7 +11,8 @@ Axes vocabulary (scaling-book conventions):
     ep    expert parallel — MoE experts split
     pp    pipeline parallel — layer stages split
     tp    tensor parallel — heads/ffn split, activation collectives
-    sp    sequence/context parallel — ring attention over sequence
+    sp    sequence/context parallel — ring or Ulysses attention over
+          sequence chunks
 
 ``MeshSpec``, ``derive``, ``elastic_reshard_ok`` and ``BATCH_AXES`` are
 the JAX module's, line for line: pure shape math on the scheduler's env
@@ -69,11 +70,14 @@ class MeshSpec:
 
 AXES = ("dcn", "dp", "fsdp", "ep", "pp", "sp", "tp")
 BATCH_AXES = ("dcn", "dp", "fsdp")  # batch shards over all data axes
+# the axes each rank's loss is an equal share of: its rows, and under a
+# sequence-parallel recipe its chunk of the sequence
+DATA_AXES = BATCH_AXES + ("sp",)
 # the tuples of axes a process group is built for: each axis alone, the
-# batch axes (the loss mean and the gradient mean of a replicated
-# param) and the batch axes but fsdp (the gradient mean of a param
-# whose fsdp dimension the reduce-scatter already summed)
-GROUP_AXES = tuple((a,) for a in AXES) + (BATCH_AXES, ("dcn", "dp"))
+# data axes (the loss mean and the gradient mean of a replicated param)
+# and the data axes but fsdp (the gradient mean of a param whose fsdp
+# dimension the reduce-scatter already summed)
+GROUP_AXES = tuple((a,) for a in AXES) + (DATA_AXES, ("dcn", "dp", "sp"))
 
 
 class Mesh:

@@ -21,12 +21,18 @@ Megatron-LM places it, and small enough that ``torch.autograd.grad`` in
   per-layer gather of a stored shard;
 - ``all_to_all`` and ``pmean`` (forward and backward alike) are the
   explicit ep path of ``moe_ffn(axis_name=...)``, where each
-  rank's loss counts on its own, as in ``shard_map``;
+  rank's loss counts on its own, as in ``shard_map``; ``all_to_all``
+  also regroups heads and sequence chunks in Ulysses attention;
+- ``ppermute`` (send to the next rank of an axis, receive from the
+  previous one; the gradient takes the reverse trip) is
+  ``lax.ppermute`` over the ring ``j -> j+1``: the K/V hops of ring
+  attention and the activation hops of the pipeline;
 - ``vocab_parallel_nll`` is the cross entropy of logits split over tp.
 
 So a param that every rank of an axis holds whole gets the same, whole
 gradient on each of them, and only the batch axes (``dcn``, ``dp``,
-``fsdp``) are left to reduce after the backward
+``fsdp``) and, under a sequence-parallel recipe, ``sp`` (each rank's
+loss reads its own chunk) are left to reduce after the backward
 (``reduce_gradients``).  Every collective of a group of one rank is
 skipped, on every rank alike.
 
@@ -44,7 +50,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from dcos_commons_tpu_torch.parallel.mesh import BATCH_AXES, Mesh
+from dcos_commons_tpu_torch.parallel.mesh import DATA_AXES, Mesh
 
 Dims = Tuple[Tuple[str, ...], ...]
 TP = ("tp",)
@@ -135,6 +141,24 @@ def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+def _shift(t: torch.Tensor, group, index: int, n: int, shift: int
+           ) -> torch.Tensor:
+    """``t`` of the rank ``shift`` places before this one on the axis
+    (this rank's ``t`` goes ``shift`` places on).  One
+    ``all_to_all_single`` with every split empty but the two peers', so
+    the send and the receive are posted together (a ring cannot
+    deadlock) and gloo stages CUDA tensors through the host itself."""
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    send, recv = [0] * n, [0] * n
+    send[(index + shift) % n] = t.numel()
+    recv[(index - shift) % n] = t.numel()
+    _collective(dist.all_to_all_single, out, out.view(-1), t.view(-1),
+                output_split_sizes=recv, input_split_sizes=send,
+                group=group)
+    return out
+
+
 # -- autograd collectives ---------------------------------------------------
 
 
@@ -192,6 +216,17 @@ class _AllToAll(torch.autograd.Function):
         return _all_to_all(g, ctx.group), None
 
 
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index, n, shift):
+        ctx.args = (group, index, n, -shift)
+        return _shift(x, group, index, n, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, *ctx.args), None, None, None, None
+
+
 def copy_to(x: torch.Tensor, mesh: Optional[Mesh], axes: Sequence[str]
             ) -> torch.Tensor:
     """Identity forward, all-reduce of the gradient over ``axes``."""
@@ -231,6 +266,19 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]
     Its gradient takes the same trip back."""
     group = mesh.group(axes)
     return x if group is None else _AllToAll.apply(x, group)
+
+
+def ppermute(x: torch.Tensor, mesh: Optional[Mesh], axes: Sequence[str],
+             shift: int = 1) -> torch.Tensor:
+    """``lax.ppermute`` over the ring ``j -> j + shift`` of ``axes``: the
+    ``x`` of the rank ``shift`` places before this one.  The gradient
+    goes the reverse way, so every rank of the axis must call the
+    backward too (each rank's graph holds the same hops)."""
+    group = None if mesh is None else mesh.group(axes)
+    if group is None:
+        return x
+    return _PPermute.apply(x, group, mesh.index(axes), mesh.size(axes),
+                           shift)
 
 
 def gather_fsdp(t: torch.Tensor, dims: Dims, mesh: Optional[Mesh]
@@ -324,24 +372,26 @@ def unshard(t: torch.Tensor, dims: Dims, mesh: Mesh) -> torch.Tensor:
 
 def reduce_gradients(grads: List[torch.Tensor], dims: List[Dims],
                      mesh: Mesh) -> List[torch.Tensor]:
-    """The mean over the batch axes of each rank's local gradients.  A
+    """The mean over the data axes (the batch axes, and ``sp`` under a
+    sequence-parallel recipe) of each rank's local gradients.  A
     param's fsdp reduce-scatter has already summed over fsdp, so its
-    gradient is summed over ``dcn`` and ``dp`` only; every other
-    param's over all three.  Over tp and ep nothing is left to do (see
+    gradient is summed over ``dcn``, ``dp`` and ``sp`` only; every other
+    param's over all four.  Over tp and ep nothing is left to do (see
     the module doc)."""
-    n = mesh.size(BATCH_AXES)
+    n = mesh.size(DATA_AXES)
     out = []
     for g, d in zip(grads, dims):
-        axes = ("dcn", "dp") if any("fsdp" in a for a in d) else BATCH_AXES
+        axes = (("dcn", "dp", "sp") if any("fsdp" in a for a in d)
+                else DATA_AXES)
         g = all_reduce(g.contiguous(), mesh.group(axes))
         out.append(g / n if n > 1 else g)
     return out
 
 
 def batch_mean(value: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """A per-rank mean over local rows (a 0-d tensor) as the mean over
-    the global batch: the batch shards are equal."""
-    group = mesh.group(BATCH_AXES)
+    """A per-rank mean over local rows and sequence positions (a 0-d
+    tensor) as the mean over the global batch: the shards are equal."""
+    group = mesh.group(DATA_AXES)
     if group is None:
         return value
-    return all_reduce(value.detach().clone(), group) / mesh.size(BATCH_AXES)
+    return all_reduce(value.detach().clone(), group) / mesh.size(DATA_AXES)

@@ -7,8 +7,10 @@ across heads and run to run -- the autograd Function's
 gradients against the plain ones, their launch counters, and the checks
 their wrappers make.  The MoE path in f32, card against CPU: moe_ffn
 (both dispatches) and one MoE train step, routing first (each test
-prints the CPU run's smallest top-k probability margin).  Marked
-``cuda``: they skip on a host without a CUDA card.  On the card, where
+prints the CPU run's smallest top-k probability margin).  Long
+context on two ranks of the card over gloo: the ring hop
+(``ppermute``) on CUDA tensors, and Ulysses attention against the CPU.
+Marked ``cuda``: they skip on a host without a CUDA card.  On the card, where
 JAX (which tests/conftest.py imports) need not be installed:
 ``python -m pytest --noconftest -p no:cacheprovider
 tests/test_torch_cuda.py -q``."""
@@ -512,3 +514,119 @@ def test_moe_train_step_card_matches_cpu(no_tf32):
     assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
     for g, c in zip(grads_g, grads_c):
         assert ((g - c).norm() / c.norm()).item() <= 1e-4
+
+
+# -- long context: two ranks on the card, joined by gloo ---------------------
+
+
+def _pair_rank(rank, store, case, results):
+    """One of two ranks on card 0 over gloo: ``case`` "ppermute" or
+    "ulysses"; puts (rank, result, error)."""
+    import traceback
+
+    try:
+        import datetime
+
+        import torch.distributed as dist
+
+        from dcos_commons_tpu_torch.parallel import sharding
+        from dcos_commons_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+        from dcos_commons_tpu_torch.parallel.ulysses import ulysses_attention
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method="file://" + store,
+                                world_size=2, rank=rank,
+                                timeout=datetime.timedelta(seconds=120))
+        mesh = make_mesh(MeshSpec(sp=2))
+        if case == "ppermute":
+            out = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.full((3, 5), rank + 1.0, device="cuda",
+                               dtype=dtype, requires_grad=True)
+                y = sharding.ppermute(x, mesh, ("sp",))
+                (g,) = torch.autograd.grad((y * (rank + 1)).sum(), x)
+                out[str(dtype)] = (y.device.type, y.dtype == dtype,
+                                   y[0, 0].item(), g[0, 0].item())
+        else:
+            gen = torch.Generator().manual_seed(0)
+            q, k, v = (torch.randn(2, 4, 256, 64, generator=gen)
+                       for _ in range(3))
+            w = torch.randn(2, 4, 128, 64, generator=gen)
+            sl = slice(rank * 128, (rank + 1) * 128)
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                parts = [t[:, :, sl].to(dev).requires_grad_(True)
+                         for t in (q, k, v)]
+                before = attention.flash_fwd_kernel.launches
+                o = ulysses_attention(*parts, mesh, "sp", True)
+                grads = torch.autograd.grad((o * w.to(dev)).sum(), parts)
+                # numpy: a tensor in the queue would be shared through a
+                # file descriptor that dies with this process
+                runs[dev] = ([o.detach().cpu().numpy()]
+                             + [g.cpu().numpy() for g in grads],
+                             attention.flash_fwd_kernel.launches - before)
+            out = runs
+        dist.destroy_process_group()
+        results.put((rank, out, None))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        results.put((rank, None, traceback.format_exc()))
+
+
+def _on_two_ranks(tmp_path, case):
+    """Both ranks' results of ``_pair_rank``; every process ends within
+    its deadline."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    store = str(tmp_path / "store")
+    procs = [ctx.Process(target=_pair_rank, args=(r, store, case, results))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    out = {}
+    try:
+        for _ in procs:
+            rank, result, error = results.get(timeout=240)
+            assert error is None, f"rank {rank}:\n{error}"
+            out[rank] = result
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return out
+
+
+def test_ppermute_on_the_card_over_gloo(gen, tmp_path):
+    """The ring hop on CUDA tensors (f32 and bf16) over gloo: each rank
+    gets the other's tensor on the card, and the gradient takes the
+    trip back (rank r's output is scaled by r + 1, so its input's
+    gradient is the other rank's scale)."""
+    out = _on_two_ranks(tmp_path, "ppermute")
+    for rank in (0, 1):
+        other = 1 - rank
+        for dtype in ("torch.float32", "torch.bfloat16"):
+            assert out[rank][dtype] == ("cuda", True, other + 1.0,
+                                        other + 1.0)
+
+
+def test_ulysses_on_the_card_matches_cpu(no_tf32, tmp_path):
+    """Ulysses over sp2 in f32 on the card (the all-to-alls over gloo,
+    K2 forward and K3/K4 backward on each rank's 2 heads of the whole
+    sequence) against the same on the CPU (the plain version): output
+    within K2's f32 tolerance, the gradients within 1e-4 (K3/K4's f32
+    limit in chip_smoke.py), K2 launched once a rank."""
+    out = _on_two_ranks(tmp_path, "ulysses")
+    for rank in (0, 1):
+        (card, launches), (cpu, cpu_launches) = (out[rank]["cuda"],
+                                                 out[rank]["cpu"])
+        assert launches == 1 and cpu_launches == 0
+        card, cpu = ([torch.from_numpy(a) for a in run]
+                     for run in (card, cpu))
+        atol, rtol = _TOL[torch.float32]
+        torch.testing.assert_close(card[0], cpu[0], atol=atol, rtol=rtol)
+        for got, want in zip(card[1:], cpu[1:]):
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)

@@ -69,6 +69,9 @@ def test_every_port_module_imports_without_jax():
         "dcos_commons_tpu_torch.parallel.mesh",
         "dcos_commons_tpu_torch.parallel.pipeline",
         "dcos_commons_tpu_torch.parallel.sharding",
+        "dcos_commons_tpu_torch.parallel.ring",
+        "dcos_commons_tpu_torch.parallel.ulysses",
+        "dcos_commons_tpu_torch.parallel.collectives",
         "dcos_commons_tpu_torch.frameworks.serve_gang_worker",
         "dcos_commons_tpu_torch.frameworks.router_worker",
         "dcos_commons_tpu_torch.router",

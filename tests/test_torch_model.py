@@ -288,10 +288,12 @@ def test_moe_config_runs():
 
 
 def test_moe_and_sequence_parallel_raise():
-    """What stays unported raises: ring and Ulysses attention, and a mesh
-    with sequence (sp) or pipeline (pp) parallelism, under the
-    "'MoE and long-context'" label; the MoE's ``axis_name`` needs a mesh
-    to reduce over (tests/test_torch_parallel.py runs it on one)."""
+    """What the train step does not run raises: a mesh with sequence
+    parallelism (sp) and no recipe to attend across the split, and one
+    with pipeline parallelism (pp), which takes ``pipeline_loss_fn``;
+    the MoE's ``axis_name`` needs a mesh to reduce over
+    (tests/test_torch_parallel.py runs it on one).  A recipe with no
+    mesh attends over a sequence of one chunk: the plain forward."""
     from dcos_commons_tpu_torch.models.moe import MoEConfig, moe_ffn
     from dcos_commons_tpu_torch.parallel.mesh import Mesh, MeshSpec
 
@@ -299,14 +301,16 @@ def test_moe_and_sequence_parallel_raise():
         moe_ffn(MoEConfig(d_model=32, d_ff=32, n_experts=4,
                           dtype=torch.float32), {}, torch.zeros(4, 32),
                 axis_name="ep")
-    cfg = t_tf.TransformerConfig(use_ring_attention=True, d_model=32,
-                                 n_heads=4, vocab=64, n_layers=1,
-                                 dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ring"):
-        t_tf.forward(cfg, {}, torch.zeros(1, 2, dtype=torch.long))
-    cfg = t_tf.TransformerConfig(d_model=32, n_heads=4, vocab=64,
-                                 n_layers=1, dtype=torch.float32)
-    for spec in (MeshSpec(sp=2), MeshSpec(pp=2)):
-        with pytest.raises(NotImplementedError,
-                           match="'MoE and long-context'"):
-            t_tf.make_train_step(cfg, None, mesh=Mesh(spec))
+    cfg = t_tf.TransformerConfig(d_model=32, n_heads=4, n_kv_heads=4,
+                                 vocab=64, n_layers=1, dtype=torch.float32)
+    params = t_tf.init_params(cfg, device="cpu")
+    tokens = torch.arange(6).reshape(1, 6)
+    ring = t_tf.TransformerConfig(use_ring_attention=True, d_model=32,
+                                  n_heads=4, n_kv_heads=4, vocab=64,
+                                  n_layers=1, dtype=torch.float32)
+    torch.testing.assert_close(t_tf.forward(ring, params, tokens),
+                               t_tf.forward(cfg, params, tokens))
+    with pytest.raises(NotImplementedError, match="no sequence-parallel"):
+        t_tf.make_train_step(cfg, None, mesh=Mesh(MeshSpec(sp=2)))
+    with pytest.raises(NotImplementedError, match="pipeline_loss_fn"):
+        t_tf.make_train_step(cfg, None, mesh=Mesh(MeshSpec(pp=2)))
