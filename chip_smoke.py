@@ -96,6 +96,20 @@ CUDA card).  Phases, each fatal on failure:
    microbatches, 2 steps), the loss within 1e-2 of one process; step
    ms, tokens/s and the split into collectives and compute.  Ulysses
    ranks launch K2-K4 at [8, 4096, 4096, 128], the ring none of them.
+16. The MNIST job (BASELINE.json config 3): (a)
+   ``dcos_commons_tpu_torch/frameworks/train_mnist.py`` as a subprocess
+   with no ``TORCH_DEVICE``, as the scheduler launches it: exit 0, a
+   cuda device, the loss down over its 60 steps; (b) the same numpy MLP
+   weights and batch on the card and the CPU, the forward and 3 Adam
+   steps, f32 (TF32 off) and bf16, within ``MLP_TOL``, and one step
+   timed under CUDA events (ms, samples/s).  The path runs none of
+   K1-K4: their counters, set to 0 before it, read 0 after.
+17. shardcheck on the card: (a) the port's footprint of phase 7's timed
+   step (the flagship, batch 12), section by section, against its
+   measured peak: params + gradients + optimizer state must fit under
+   it; the whole prediction and its ratio to the peak are printed, not
+   gated; (b) ``GENERATION_HBM_MB["h100"]`` holds no more than the
+   card's ``total_memory``.
 8. Run last: every kernel against its plain version at each shape the
    train runs of phases 7, 11, 12 and 15 launched it at (K1 [24576,
    16384 or 4096, 2048] bf16, K2-K4 [192, 128 or 32, 2048, 2048, 128]
@@ -111,7 +125,9 @@ long context over NCCL: ``collective_bandwidth`` (psum, all_gather,
 reduce_scatter, the ring hop; 64 MB a rank) over every card and
 ``single_chip_rooflines`` on card 0, then phase 15(b)'s layouts (two
 cards: Ulysses and ring sp2, pp2; four: Ulysses and ring sp4 at a
-context of 8192, Ulysses sp2 x tp2, pp2 x dp2); nothing else.
+context of 8192, Ulysses sp2 x tp2, pp2 x dp2); nothing else but 17(c):
+the gang train worker's steplog beside shardcheck's NVLink wire model
+of its dp layout (``stepcompare``, reported, not gated).
 
 Each kernel's log line gives its error, its time, the plain version's,
 the library call's and the bound, the rate it reached (TFLOP/s) and its
@@ -1096,10 +1112,11 @@ def profile_step(run, top=10, moe=False):
         for kind, ms in sorted(split.items(), key=lambda kv: -kv[1])))
 
 
-def time_train_step(logs, config, batch, label, warmup=2, steps=5):
+def time_train_step(logs, config, batch, label, peaks, warmup=2, steps=5):
     """make_train_step of ``config`` at ``batch``: tokens/s, step ms and
-    peak device memory (host clock around synchronised steps), then one
-    more step under the profiler (after its warm-up step)."""
+    peak device memory (host clock around synchronised steps; the peak
+    also into ``peaks[label]``), then one more step under the profiler
+    (after its warm-up step)."""
     from dcos_commons_tpu_torch.models.transformer import (
         adamw, init_params, make_train_step,
     )
@@ -1123,6 +1140,7 @@ def time_train_step(logs, config, batch, label, warmup=2, steps=5):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    peaks[label] = peak
     if not np.isfinite(float(loss)):
         raise AssertionError(f"train loss {float(loss)}")
     log(f"train step {label} [batch {batch}, seq {config.max_seq}] bf16, "
@@ -2420,6 +2438,187 @@ def phase_long(tag, world, backend, cases, deadline_s, probe=False):
     return launches, shapes
 
 
+# -- phase 16: the MNIST job --------------------------------------------------
+
+MNIST_STEPS = 60          # train_mnist.py's default, as the reference's
+MNIST_BATCH = 256         # its one fixed batch
+# the MLP card against CPU: f32 (TF32 off) sums of up to 784 products
+# in another order; bf16 one bf16 ulp (2^-8 relative) of a logit and
+# the loss through it.  f32 params after the first Adam step within
+# 1e-5 + 1e-5 |p| where its gradient is zero or at least 1e-7 (below
+# that the update g / (|g| + eps) amplifies the rounding of a
+# nearly-zero gradient, as tests/test_torch_mnist.py states), 2 lr
+# elsewhere; the f32 losses of steps 2 and 3 within MLP_LATER_LOSS
+# (after a sign-like Adam step a hidden unit's input can sit near zero
+# and the two roundings take its ReLU to either side, as
+# tests/test_torch_cuda.py states)
+MLP_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+MLP_LATER_LOSS = 1e-4
+
+
+def phase_mnist_job(sandbox):
+    """16(a): train_mnist.py as the scheduler launches it (no
+    TORCH_DEVICE): exit 0 on a cuda device, the loss down over its 60
+    steps."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("TORCH_DEVICE", "TRAIN_STEPS")}
+    script = os.path.join(ROOT, "dcos_commons_tpu_torch", "frameworks",
+                          "train_mnist.py")
+    t0 = time.monotonic()
+    out = subprocess.run([sys.executable, script], env=env, cwd=sandbox,
+                         capture_output=True, text=True, timeout=240)
+    wall = time.monotonic() - t0
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines:
+        raise AssertionError(f"train_mnist.py exit {out.returncode}: "
+                             f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+    last = lines[-1]
+    if not last.startswith(f"trained {MNIST_STEPS} steps on cuda ("):
+        raise AssertionError(f"train_mnist.py did not train on cuda: {last}")
+    first, final = (float(v) for v in last.split("loss ")[1].split(" -> "))
+    if not final < first:
+        raise AssertionError(f"train_mnist.py loss did not fall: {last}")
+    log(f"16(a) train_mnist.py: exit 0 in {wall:.1f} s: {lines[0]}; {last}")
+
+
+def phase_mnist_parity(smi):
+    """16(b): the same numpy MLP weights and batch on the card and the
+    CPU, forward and 3 Adam steps, f32 and bf16, within ``MLP_TOL``
+    (``MLP_LATER_LOSS`` for the later f32 losses); then one step timed
+    under CUDA events."""
+    from dcos_commons_tpu_torch.models import mlp
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = MLP_TOL[dtype]
+        rng = np.random.default_rng(0)
+        config = mlp.MlpConfig(dtype=dtype)
+        shapes = mlp.mlp_init(config, 0, "meta")
+        weights = {k: rng.standard_normal(tuple(v.shape)).astype(np.float32)
+                   * (0.05 if k.startswith("w") else 0.01)
+                   for k, v in shapes.items()}
+        cpu = {k: torch.from_numpy(w).to(dtype) for k, w in weights.items()}
+        card = {k: v.to("cuda") for k, v in cpu.items()}
+        x = torch.from_numpy(rng.uniform(0, 1, (MNIST_BATCH, 784))
+                             .astype(np.float32))
+        y = torch.from_numpy(rng.integers(0, 10, (MNIST_BATCH,)))
+        xc, yc = x.cuda(), y.cuda()
+        logits_err = check(f"MLP logits {dtype}",
+                           mlp.mlp_forward(card, xc).cpu(),
+                           mlp.mlp_forward(cpu, x), (tol, tol))
+        keys = sorted(cpu)
+        for key in keys:
+            cpu[key].requires_grad_(True)
+        g0 = torch.autograd.grad(mlp.mlp_loss(cpu, x, y),
+                                 [cpu[k] for k in keys])
+        g0 = {k: g.abs() for k, g in zip(keys, g0)}
+        steps = [mlp.mlp_train_step(mlp.mlp_adam(p, 1e-3))
+                 for p in (cpu, card)]
+        losses = []
+        param_err = 0.0
+        for i in range(3):
+            losses.append((float(steps[0](cpu, x, y)),
+                           float(steps[1](card, xc, yc))))
+            limit = (tol if i == 0 or dtype != torch.float32
+                     else MLP_LATER_LOSS)
+            if not abs(losses[-1][0] - losses[-1][1]) <= limit:
+                raise AssertionError(f"MLP {dtype} losses {losses}")
+            if i or dtype != torch.float32:
+                continue
+            for key in keys:
+                diff = (card[key].detach().cpu() - cpu[key].detach()).abs()
+                steady = (g0[key] >= 1e-7) | (g0[key] == 0)
+                bound = 1e-5 + 1e-5 * cpu[key].detach().abs()
+                if not bool((diff <= bound)[steady].all()) or float(
+                        diff.max()) > 2e-3:
+                    raise AssertionError(f"MLP f32 param {key} differs by "
+                                         f"{float(diff.max()):.3e}")
+                param_err = max(param_err, float(diff[steady].max()))
+        loss_err = max(abs(a - b) for a, b in losses)
+        ms = time_ms(lambda: steps[1](card, xc, yc), iters=50, warmup=5)
+        log(f"16(b) MLP {dtype} card vs CPU: logits {logits_err:.3e}, "
+            f"losses over 3 Adam steps {losses} (max diff {loss_err:.3e}), "
+            f"f32 params after one step {param_err:.3e}; one step "
+            f"[batch {MNIST_BATCH}] {ms:.4f} ms, "
+            f"{MNIST_BATCH / ms * 1e3:,.0f} samples/s ({smi})")
+
+
+# -- phase 17: shardcheck on the card ---------------------------------------
+
+
+def shard_sections(workload):
+    """{section: bytes on one card} of a shardcheck workload."""
+    from dcos_commons_tpu_torch.analysis import shardcheck
+
+    reports, problems = shardcheck._check_workload(
+        workload, shardcheck.axis_vocabulary())
+    if problems:
+        raise AssertionError(f"shardcheck problems: {problems}")
+    sections = {}
+    for r in reports:
+        sections[r.leaf.section] = (sections.get(r.leaf.section, 0)
+                                    + r.per_chip_bytes)
+    return sections, reports
+
+
+def phase_shardcheck(peak, smi):
+    """17(a): shardcheck's footprint of phase 7's timed step (the
+    flagship, remat full + NO_REMAT_LAYERS stored, batch TRAIN_BATCH)
+    against its measured peak: params + gradients + optimizer state
+    must fit under the peak; the whole prediction and its ratio to the
+    peak are printed, not gated.  17(b): the HBM table's h100 entry
+    holds no more than the card has."""
+    from dcos_commons_tpu_torch.analysis import shardcheck
+    from dcos_commons_tpu_torch.specification import GpuSpec
+
+    gpu = GpuSpec(chips_per_host=1)
+    workload = shardcheck.PROFILES["train_worker.py"](
+        dict(TRAIN_ENV, **gpu.mesh_env()), gpu, None, None,
+        batch=TRAIN_BATCH)
+    sections, _ = shard_sections(workload)
+    gib = 2 ** 30
+    floor = sections["params"] + sections["grads"] + sections["opt"]
+    total = sum(sections.values())
+    log("17(a) shardcheck, flagship train step [batch "
+        f"{TRAIN_BATCH}, seq {TRAIN_ENV['SEQ_LEN']}], by section: "
+        + ", ".join(f"{k} {v / gib:.3f} GiB"
+                    for k, v in sorted(sections.items()))
+        + f"; params+grads+opt {floor / gib:.3f} GiB, all {total / gib:.3f}"
+        f" GiB; measured peak {peak / gib:.3f} GiB (phase 7); prediction "
+        f"over peak {total / peak:.3f} ({smi})")
+    if floor > peak:
+        raise AssertionError(
+            f"params + grads + optimizer state {floor} B exceed the "
+            f"measured peak {peak} B: the footprint model overcounts")
+    card = torch.cuda.get_device_properties(0).total_memory
+    table = shardcheck.GENERATION_HBM_MB["h100"] * 2 ** 20
+    log(f"17(b) GENERATION_HBM_MB['h100'] {table:,} B against the card's "
+        f"total_memory {card:,} B ({smi})")
+    if table > card:
+        raise AssertionError("the HBM table holds more than the card has: "
+                             "it would approve an OOM")
+
+
+def gang_stepcompare(steplog_path, world, smi):
+    """17(c), ``--nccl-gang``: the gang train worker's steplog against
+    shardcheck's NVLink wire model of its dp layout; reported, not
+    gated."""
+    from dcos_commons_tpu_torch.analysis import shardcheck
+    from dcos_commons_tpu_torch.specification import GpuSpec
+    from dcos_commons_tpu_torch.trace.steplog import read_steplog
+
+    gpu = GpuSpec(chips_per_host=world)
+    env = dict(TRAIN_ENV, N_LAYERS="2", **gpu.mesh_env())
+    workload = shardcheck.PROFILES["train_worker.py"](env, gpu, None, None)
+    _, reports = shard_sections(workload)
+    cost = shardcheck._cost_model(workload, reports, "h100")
+    records = read_steplog(steplog_path)
+    compared = shardcheck.stepcompare(cost, records)
+    log(f"17(c) stepcompare, gang train worker on {world} cards "
+        f"{ {k: v for k, v in workload.mesh.axes().items() if v > 1} } at "
+        f"{shardcheck.NVLINK_GBPS['h100']} GB/s: {len(records)} steplog "
+        f"records, cost {cost['per_step']}, {compared} ({smi})")
+
+
 def check_gang_shapes(shapes, gen):
     """K1 and K2 against their plain versions at every shape a gang rank
     launched them at.  Returns the largest max-abs error of each."""
@@ -2460,6 +2659,9 @@ def nccl_gang_main(kind, smi):
     shutil.rmtree(ckpt, ignore_errors=True)
     env = dict(TRAIN_ENV, N_LAYERS="2", CHECKPOINT_DIR=ckpt,
                SANDBOX=os.path.join(ROOT, "build", "smoke"))
+    steplog = os.path.join(env["SANDBOX"], "steplog.jsonl")
+    if os.path.exists(steplog):
+        os.remove(steplog)
     for steps, start in ((2, 0), (3, 2)):
         result = train_gang(dict(env, TRAIN_STEPS=str(steps)), n, log=log,
                             deadline_s=540)
@@ -2469,6 +2671,7 @@ def nccl_gang_main(kind, smi):
         log(f"12(c) train worker, {n} ranks over NCCL, steps {start}.."
             f"{steps - 1}: batch {result.batch}, losses {result.losses}")
     shutil.rmtree(ckpt, ignore_errors=True)
+    gang_stepcompare(steplog, n, smi)
     # the serving gang at full width, one rank a card over NCCL
     watchdog.phase(f"12(c) tp{n} serving gang", 600)
     launches, _ = phase_gang_serving(
@@ -2582,9 +2785,11 @@ def main():
 
     flagship = config_from_env(TRAIN_ENV, dtype=torch.bfloat16,
                                no_remat_layers=NO_REMAT_LAYERS)
+    peaks = {}
     train_launches, train_shapes = phase_train(
         logs, TRAIN_ENV, NO_REMAT_LAYERS, (6, 8),
-        lambda: time_train_step(logs, flagship, TRAIN_BATCH, "flagship"))
+        lambda: time_train_step(logs, flagship, TRAIN_BATCH, "flagship",
+                                peaks))
 
     # phase 9: the MoE flagship served on both pool paths
     watchdog.phase("9 MoE serving", 300)
@@ -2618,7 +2823,7 @@ def main():
                                  moe_capacity_factor=MOE_CAPACITY)
     moe_train_launches, moe_train_shapes = phase_train(
         logs, dict(TRAIN_ENV, **MOE_ENV), 0, (4, 6),
-        lambda: time_train_step(logs, moe_config, MOE_BATCH, "MoE"))
+        lambda: time_train_step(logs, moe_config, MOE_BATCH, "MoE", peaks))
     # phase 12: the gang step.  (a) a world of one over NCCL at the
     # flagship's full size; (b) two processes on the one card over gloo
     watchdog.phase("12a NCCL world of one", 300)
@@ -2647,6 +2852,20 @@ def main():
     long_counts, long_shapes = phase_long(
         "15", 2, "gloo", long_cases(LONG_LAYOUTS, torch.float32)
         + long_cases(LONG_LAYOUTS, torch.bfloat16), 280)
+    # phase 16: the MNIST job, (a) as the scheduler launches it, (b) the
+    # MLP card against CPU and its step timed; it runs none of K1-K4
+    watchdog.phase("16 MNIST job", 300)
+    for shape_log in logs.values():
+        shape_log.reset()
+    phase_mnist_job(sandbox)
+    phase_mnist_parity(smi)
+    mnist_launches = {n: logs[n].launches for n in logs}
+    log(f"16 MNIST path launches {mnist_launches}")
+    if any(mnist_launches.values()):
+        raise AssertionError(f"the MNIST path launched {mnist_launches}")
+    # phase 17: shardcheck against phase 7's measured peak and the card
+    watchdog.phase("17 shardcheck", 120)
+    phase_shardcheck(peaks["flagship"], smi)
     launches = {n: slot_launches[n] + paged_launches[n] + train_launches[n]
                 + moe_launches[n] + moe_train_launches[n]
                 + gang_one_launches[n] + gang_two_launches[n]

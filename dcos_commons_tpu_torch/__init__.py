@@ -5,8 +5,9 @@ kernels written by hand for it (``ops/``, ``csrc/``); the JAX package
 beside it is the reference each ported module is held against.  The
 port imports ``torch`` and numpy and nothing of the JAX package: what
 it needs of the pure-Python modules there (the serving engines,
-paging, migration, the micro-batcher, the metrics registry) it keeps
-as its own copies.
+paging, migration, the micro-batcher, the metrics registry, the
+service specification and its validators, the options renderer) it
+keeps as its own copies.
 
 Entry points that create tensors take ``device=``; left out, it is
 ``cuda``, and a host without CUDA raises instead of running on the CPU

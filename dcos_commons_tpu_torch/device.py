@@ -2,7 +2,10 @@
 
 ``resolve_device``: the card is the default.  ``None`` means
 ``cuda``; asking for CUDA on a host without it raises — nothing in the
-port quietly carries on on the CPU.
+port quietly carries on on the CPU.  ``meta`` builds shapes and dtypes
+with no storage (the port's counterpart of ``jax.eval_shape``, which
+``analysis/shardcheck.py`` reads); ``generator`` gives no generator
+there, since a meta tensor has no values to draw.
 
 Kernels are built from the sources in ``csrc/`` at first use, into
 ``build/kernels/`` at the repo root (listed in ``.gitignore``): ``nvcc``
@@ -51,9 +54,18 @@ def resolve_device(device: Union[str, torch.device, None] = None
             f"device {dev} requested but CUDA is not available; pass "
             "device='cpu' to run the plain PyTorch path"
         )
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def generator(device: torch.device, seed: int
+              ) -> Optional[torch.Generator]:
+    """A generator of ``device`` seeded with ``seed``; ``None`` on
+    ``meta``, where nothing is drawn."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def _nvcc() -> str:

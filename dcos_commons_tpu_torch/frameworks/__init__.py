@@ -1,2 +1,4 @@
-"""The port's workers (the JAX package's live under ``frameworks/jax/``
-at the repo root, where the analyzers walk; the port's stay here)."""
+"""The port's workers, its service YAMLs and their ``options.json`` (the
+JAX package's live under ``frameworks/jax/`` at the repo root, where
+its analyzers walk; the port's stay here, where its own shardcheck
+walks)."""

@@ -10,6 +10,9 @@ port's tree of the same shape, so both packages compute the same
 function of the same weights.  The router stays f32 whatever ``dtype``
 the other float leaves take, as the JAX package keeps it.
 
+``mlp_params_from_jax`` takes the MNIST MLP's flat ``w1..b3`` tree the
+same way; ``params_to_jax`` carries it back, as it carries any tree.
+
 ``params_to_jax`` and ``train_state_to_jax`` go the other way, to trees
 of numpy arrays: the params, and ``{"params", "opt_state"}`` with the
 optimizer state in ``optax.adamw``'s layout ``((count, mu, nu), (),
@@ -73,6 +76,17 @@ def params_from_jax(tree: Params, device=None,
         },
         "final_norm": _leaf(tree["final_norm"], dev, dtype),
     }
+
+
+def mlp_params_from_jax(tree: Params, device=None,
+                        dtype: torch.dtype = torch.float32) -> Params:
+    """The JAX package's MLP params (``w1``, ``b1``, ..., ``b3``) -> the
+    port's, on ``device`` (default ``cuda``) in ``dtype``."""
+    dev = resolve_device(device)
+    expected = {f"{k}{i}" for k in "wb" for i in (1, 2, 3)}
+    if set(tree) != expected:
+        raise ValueError(f"unexpected MLP leaves {sorted(tree)}")
+    return {name: _tensor(arr, dev, dtype) for name, arr in tree.items()}
 
 
 def _to_numpy(t) -> np.ndarray:

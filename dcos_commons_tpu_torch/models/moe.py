@@ -77,7 +77,8 @@ class MoEConfig:
         return max(cap, 1)
 
 
-def init_moe_params(config: MoEConfig, generator: torch.Generator,
+def init_moe_params(config: MoEConfig,
+                    generator: Optional[torch.Generator],
                     device: torch.device, lead: Tuple[int, ...] = ()
                     ) -> MoEParams:
     """Router and expert weights, random from ``generator``, with the

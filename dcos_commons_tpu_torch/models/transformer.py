@@ -59,7 +59,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from dcos_commons_tpu_torch.device import resolve_device
+from dcos_commons_tpu_torch.device import generator, resolve_device
 from dcos_commons_tpu_torch.models.moe import (
     MoEConfig,
     init_moe_params,
@@ -221,11 +221,12 @@ def check_mesh(config: TransformerConfig, mesh: Mesh) -> None:
 def init_params(config: TransformerConfig, seed: int = 0,
                 device=None) -> Params:
     """Stacked-layer param tree, random from ``seed``, made on
-    ``device`` (default ``cuda``) with a generator of that device.
-    The draws differ from the JAX package's for the same seed; carry
-    JAX weights across with ``models.bridge.params_from_jax``."""
+    ``device`` (default ``cuda``) with a generator of that device
+    (``meta``: shapes and dtypes only).  The draws differ from the JAX
+    package's for the same seed; carry JAX weights across with
+    ``models.bridge.params_from_jax``."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator(dev, seed)
     d, h, kv, hd, f = (
         config.d_model, config.n_heads, config.n_kv_heads,
         config.head_dim, config.d_ff,

@@ -12,6 +12,9 @@ its shard on a ring of n).  ``single_chip_rooflines`` gives the
 ceilings those numbers sit under: HBM copy GB/s and bf16 matmul
 TFLOP/s on one device.
 
+``main`` is the sidecar bench task of the port's ``svc.yml``
+(``python -m dcos_commons_tpu_torch.parallel.collectives``).
+
 The reference subtracts a measured dispatch overhead and stretches its
 chains to thousands of calls, to see past the latency of a relay in
 front of its device.  The port reaches its card directly, and the CUDA
@@ -20,8 +23,11 @@ events time the device's own work, so neither has a counterpart here.
 
 from __future__ import annotations
 
+import json
+import os
+import tempfile
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -138,3 +144,70 @@ def single_chip_rooflines(
         "hbm_copy_gbps": 2 * x.numel() * 2 * iters / max(copy_s, 1e-9) / 1e9,
         "matmul_bf16_tflops": 2 * m ** 3 * iters / max(mm_s, 1e-9) / 1e12,
     }
+
+
+def _bench_rank(local_rank: int, local_devices: int, kind: str,
+                init_method: Optional[str], payload_mb: float,
+                iters: int) -> None:
+    """One rank of the bench: every rank of the gang on one dp axis,
+    the rooflines on its own device; the gang's rank 0 prints the
+    report."""
+    import torch.distributed as dist
+
+    from dcos_commons_tpu_torch.parallel.distributed import (
+        initialize_from_env,
+    )
+    from dcos_commons_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    device = resolve_device(kind if kind == "cpu" else f"cuda:{local_rank}")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    initialize_from_env(os.environ,
+                        "nccl" if device.type == "cuda" else "gloo",
+                        local_rank, local_devices, init_method=init_method)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    report: Dict[str, object] = {"devices": world,
+                                 "platform": device.type}
+    report.update(collective_bandwidth(
+        make_mesh(MeshSpec(dp=world)), "dp", payload_mb=payload_mb,
+        iters=iters, device=device))
+    report.update(single_chip_rooflines(iters=iters, device=device))
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps(report, sort_keys=True), flush=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def main(argv: Optional[list] = None) -> int:
+    """CLI for the sidecar bench task (the collectives plan of the
+    port's svc.yml): one rank a local card (``TORCH_DEVICE=cpu``: one
+    rank on the CPU), the gang's ranks meeting at
+    ``COORDINATOR_ADDRESS`` (a lone worker's at a file store of its
+    own), the four collectives over all of them and the rooflines on
+    each card; one JSON line from rank 0."""
+    import argparse
+
+    parser = argparse.ArgumentParser(prog="collective-bench")
+    parser.add_argument("--payload-mb", type=float, default=32.0)
+    parser.add_argument("--iters", type=int, default=20)
+    args = parser.parse_args(argv)
+
+    kind = os.environ.get("TORCH_DEVICE") or "cuda"
+    local_devices = (torch.cuda.device_count()
+                     if kind == "cuda" and torch.cuda.is_available() else 1)
+    if local_devices == 1:
+        _bench_rank(0, 1, kind, None, args.payload_mb, args.iters)
+        return 0
+    with tempfile.TemporaryDirectory(prefix="rendezvous-") as meet:
+        init_method = None
+        if int(os.environ.get("TPU_WORKER_COUNT", "1") or 1) == 1:
+            init_method = "file://" + os.path.join(meet, "store")
+        torch.multiprocessing.spawn(
+            _bench_rank, nprocs=local_devices,
+            args=(local_devices, kind, init_method, args.payload_mb,
+                  args.iters))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

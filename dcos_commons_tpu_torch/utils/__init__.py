@@ -9,7 +9,7 @@ from dcos_commons_tpu_torch.utils.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
-from dcos_commons_tpu_torch.utils.data import synthetic_tokens
+from dcos_commons_tpu_torch.utils.data import synthetic_mnist, synthetic_tokens
 from dcos_commons_tpu_torch.utils.microbatch import (
     MicroBatcher,
     QueueTimeoutError,
@@ -32,6 +32,7 @@ __all__ = [
     "param_count",
     "restore_checkpoint",
     "save_checkpoint",
+    "synthetic_mnist",
     "synthetic_tokens",
     "unpack_results",
 ]

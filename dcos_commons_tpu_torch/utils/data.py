@@ -10,6 +10,8 @@ from typing import Tuple
 
 import torch
 
+from dcos_commons_tpu_torch.device import generator, resolve_device
+
 
 def synthetic_tokens(
     batch: int, seq: int, vocab: int, generator: torch.Generator
@@ -21,3 +23,15 @@ def synthetic_tokens(
         device=generator.device,
     )
     return tokens[:, :-1], tokens[:, 1:]
+
+
+def synthetic_mnist(batch: int, seed: int = 0, device=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x [batch, 784] f32 uniform in [0, 1), y [batch] int64 classes
+    0-9), made on ``device`` (default ``cuda``) from ``seed``."""
+    dev = resolve_device(device)
+    gen = generator(dev, seed)
+    x = torch.rand((batch, 784), generator=gen, device=dev,
+                   dtype=torch.float32)
+    y = torch.randint(0, 10, (batch,), generator=gen, device=dev)
+    return x, y

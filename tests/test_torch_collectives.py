@@ -3,11 +3,17 @@
 four collectives over a gloo world of 2 processes report positive bus
 GB/s, an axis of one rank degenerates to the bookkeeping keys alone
 (as the reference's ``tests/test_collectives.py`` expects of its own),
-and the rooflines report positive rates.  CPU rates measure nothing of
-a card; only that every probe runs, chains and reports."""
+and the rooflines report positive rates; the sidecar CLI (``main``)
+prints its one JSON line.  CPU rates measure nothing of a card; only
+that every probe runs, chains and reports."""
 
+import functools
+import json
+
+import pytest
 from test_torch_parallel import run_gang
 
+from dcos_commons_tpu_torch.parallel import collectives
 from dcos_commons_tpu_torch.parallel import mesh as t_mesh
 from dcos_commons_tpu_torch.parallel.collectives import (
     collective_bandwidth,
@@ -45,3 +51,23 @@ def test_single_chip_rooflines_report():
                                    device="cpu")
     assert report["hbm_copy_gbps"] > 0
     assert report["matmul_bf16_tflops"] > 0
+
+
+def test_sidecar_cli_prints_one_report(monkeypatch, capsys):
+    """The bench task of the port's svc.yml on one CPU rank (the card
+    sizes of its rooflines cut down here)."""
+    monkeypatch.setenv("TORCH_DEVICE", "cpu")
+    monkeypatch.setattr(collectives, "single_chip_rooflines", functools.partial(
+        single_chip_rooflines, payload_mb=4.0, matmul_dim=256))
+    assert collectives.main(["--payload-mb", "0.5", "--iters", "2"]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["devices"] == 1 and report["platform"] == "cpu"
+    assert report["axis_size"] == 1.0 and report["hbm_copy_gbps"] > 0
+
+
+def test_sidecar_cli_needs_the_card_unless_asked(monkeypatch):
+    monkeypatch.delenv("TORCH_DEVICE", raising=False)
+    if collectives.torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        collectives.main(["--iters", "1"])

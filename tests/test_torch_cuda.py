@@ -7,7 +7,8 @@ across heads and run to run -- the autograd Function's
 gradients against the plain ones, their launch counters, and the checks
 their wrappers make.  The MoE path in f32, card against CPU: moe_ffn
 (both dispatches) and one MoE train step, routing first (each test
-prints the CPU run's smallest top-k probability margin).  Long
+prints the CPU run's smallest top-k probability margin).  The MNIST MLP
+card against CPU, f32 and bf16: its forward and three Adam steps.  Long
 context on two ranks of the card over gloo: the ring hop
 (``ppermute``) on CUDA tensors, and Ulysses attention against the CPU.
 Marked ``cuda``: they skip on a host without a CUDA card.  On the card, where
@@ -517,6 +518,81 @@ def test_moe_train_step_card_matches_cpu(no_tf32):
 
 
 # -- long context: two ranks on the card, joined by gloo ---------------------
+
+
+def _mlp_pair(dtype, seed=0):
+    """The same MLP weights and batch on the card and on the CPU."""
+    from dcos_commons_tpu_torch.models import mlp
+
+    cpu = mlp.mlp_init(mlp.MlpConfig(dtype=dtype), seed, "cpu")
+    card = {k: v.to("cuda") for k, v in cpu.items()}
+    x, y = synthetic_mnist_cpu(seed)
+    return cpu, card, x, y
+
+
+def synthetic_mnist_cpu(seed):
+    from dcos_commons_tpu_torch.utils import synthetic_mnist
+
+    return synthetic_mnist(256, seed=seed + 1, device="cpu")
+
+
+# card against CPU: f32 (TF32 off) sums of up to 784 products in
+# another order, bf16 one bf16 ulp (2^-8 relative) of a logit and the
+# loss through it
+_MLP_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+_MLP_LATER_LOSS = 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_forward_card_matches_cpu(no_tf32, dtype):
+    from dcos_commons_tpu_torch.models import mlp
+
+    cpu, card, x, y = _mlp_pair(dtype)
+    tol = _MLP_TOL[dtype]
+    got = mlp.mlp_forward(card, x.cuda())
+    assert got.is_cuda and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), mlp.mlp_forward(cpu, x),
+                               atol=tol, rtol=tol)
+    assert abs(float(mlp.mlp_loss(card, x.cuda(), y.cuda()))
+               - float(mlp.mlp_loss(cpu, x, y))) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_adam_steps_card_match_cpu(no_tf32, dtype):
+    """Three Adam steps.  f32 params after the first step within 1e-5 +
+    1e-5 |p| wherever its gradient is zero or at least 1e-7 (below,
+    Adam's first update amplifies a nearly-zero gradient's rounding, as
+    tests/test_torch_mnist.py states), within 2 lr elsewhere; the losses
+    within the forward's tolerance, and those of steps 2 and 3 in f32
+    within ``_MLP_LATER_LOSS``: after a sign-like Adam step a hidden
+    unit's input can sit near zero, and the two sides' roundings then
+    take its ReLU to either side (on the CPU, f32 against f64 from
+    ``mlp_init`` seed 0 moved 1.7e-3 of a param and 8.6e-6 of the
+    third loss that way)."""
+    from dcos_commons_tpu_torch.models import mlp
+
+    cpu, card, x, y = _mlp_pair(dtype)
+    keys = sorted(cpu)
+    for key in keys:
+        cpu[key].requires_grad_(True)
+    grads = torch.autograd.grad(mlp.mlp_loss(cpu, x, y),
+                                [cpu[k] for k in keys])
+    g0 = {k: g.abs() for k, g in zip(keys, grads)}
+    steps = [mlp.mlp_train_step(mlp.mlp_adam(p, 1e-3)) for p in (cpu, card)]
+    for i in range(3):
+        want = float(steps[0](cpu, x, y))
+        got = float(steps[1](card, x.cuda(), y.cuda()))
+        tol = (_MLP_TOL[dtype] if i == 0 or dtype != torch.float32
+               else _MLP_LATER_LOSS)
+        assert abs(got - want) <= tol, (i, got, want)
+        if i or dtype != torch.float32:
+            continue
+        for key, p in card.items():
+            diff = (p.detach().cpu() - cpu[key].detach()).abs()
+            steady = (g0[key] >= 1e-7) | (g0[key] == 0)
+            limit = 1e-5 + 1e-5 * cpu[key].detach().abs()
+            assert bool((diff <= limit)[steady].all()), key
+            assert float(diff.max()) <= 2e-3, key
 
 
 def _pair_rank(rank, store, case, results):

@@ -80,6 +80,17 @@ def test_every_port_module_imports_without_jax():
         "dcos_commons_tpu_torch.router.frontdoor",
         "dcos_commons_tpu_torch.router.telemetry",
         "dcos_commons_tpu_torch.security.auth",
+        "dcos_commons_tpu_torch.models.mlp",
+        "dcos_commons_tpu_torch.frameworks.train_mnist",
+        "dcos_commons_tpu_torch.specification",
+        "dcos_commons_tpu_torch.specification.specs",
+        "dcos_commons_tpu_torch.specification.yaml_spec",
+        "dcos_commons_tpu_torch.specification.validation",
+        "dcos_commons_tpu_torch.offer.placement",
+        "dcos_commons_tpu_torch.tools.options",
+        "dcos_commons_tpu_torch.analysis.linter",
+        "dcos_commons_tpu_torch.analysis.shardcheck",
+        "dcos_commons_tpu_torch.analysis.__main__",
     } <= set(mods)
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT, REPO, *mods],
@@ -132,11 +143,14 @@ def test_entry_points_default_to_the_card():
     from dcos_commons_tpu_torch.frameworks.serve_worker import build_server
     from dcos_commons_tpu_torch.frameworks.train_worker import train
     from dcos_commons_tpu_torch.models import (
+        MlpConfig,
         TransformerConfig,
         init_kv_cache,
         init_params,
+        mlp_init,
         params_from_jax,
     )
+    from dcos_commons_tpu_torch.utils import synthetic_mnist
 
     assert resolve_device("cpu").type == "cpu"
     if torch.cuda.is_available():
@@ -147,6 +161,8 @@ def test_entry_points_default_to_the_card():
     for call in (
         lambda: resolve_device(),
         lambda: init_params(config),
+        lambda: mlp_init(MlpConfig()),
+        lambda: synthetic_mnist(4),
         lambda: init_kv_cache(config, 1, 8),
         lambda: params_from_jax({"layers": {}}),
         lambda: build_server({"VOCAB": "16"}, ready_file=""),
@@ -180,3 +196,41 @@ def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
     assert all(os.path.dirname(after[n]) == device.BUILD_DIR for n in names)
     (tmp_path / "extra.cuh").write_text("#pragma once\n")
     assert all(device._library_path(n) != after[n] for n in names)
+
+
+@pytest.mark.parametrize("n_experts", [0, 4])
+def test_meta_device_builds_shapes_without_values(n_experts):
+    """``meta`` is admitted: the trees shardcheck reads are built with
+    no generator and no storage, in the shapes and dtypes the CPU
+    builds."""
+    from dcos_commons_tpu_torch.device import generator, resolve_device
+    from dcos_commons_tpu_torch.models import (
+        TransformerConfig,
+        init_kv_cache,
+        init_paged_kv_cache,
+        init_params,
+    )
+    from dcos_commons_tpu_torch.utils.tree import tree_leaves
+
+    meta = resolve_device("meta")
+    assert meta.type == "meta" and generator(meta, 0) is None
+    assert generator(resolve_device("cpu"), 0) is not None
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("xpu")
+    config = TransformerConfig(vocab=32, d_model=16, n_layers=2, n_heads=2,
+                               n_kv_heads=2, d_ff=32, n_experts=n_experts)
+    shapes = init_params(config, 0, "meta")
+    real = init_params(config, 0, "cpu")
+    for a, b in zip(tree_leaves(shapes), tree_leaves(real)):
+        assert a.device.type == "meta"
+        assert (a.shape, a.dtype) == (b.shape, b.dtype)
+    for kv_dtype in ("native", "int8"):
+        for cache, want in (
+            (init_kv_cache(config, 3, 8, kv_dtype, device="meta"),
+             init_kv_cache(config, 3, 8, kv_dtype, device="cpu")),
+            (init_paged_kv_cache(config, 5, 4, kv_dtype, device="meta"),
+             init_paged_kv_cache(config, 5, 4, kv_dtype, device="cpu")),
+        ):
+            assert {k: (v.shape, v.dtype, v.device.type)
+                    for k, v in cache.items()} == {
+                k: (v.shape, v.dtype, "meta") for k, v in want.items()}
