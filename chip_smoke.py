@@ -110,6 +110,23 @@ CUDA card).  Phases, each fatal on failure:
    it; the whole prediction and its ratio to the peak are printed, not
    gated; (b) ``GENERATION_HBM_MB["h100"]`` holds no more than the
    card's ``total_memory``.
+18. The offer engine places the train worker: (a) this machine as one
+   ``GpuHost`` (its cards, CPUs, memory; an H100 or the phase fails),
+   the port's ``svc.yml`` trainer rendered at one card (topology 1x1, 2
+   steps) evaluated with a StateStore and a ReservationLedger on a
+   ``FileWalPersister`` under ``build/smoke/placed/``, its reservations
+   committed; the worker then runs as a child whose env is the
+   TaskInfo's over the flagship width of phase 7 (``PLACED_WIDTH``)
+   with only PATH and PYTHONPATH of this process's env
+   (``--placed-child``: ``train_worker.main``, then its K1-K4 counters
+   and the UUIDs of the cards it saw).  It must exit 0 with a finite
+   loss, K1-K4 launched, and see exactly the card of its
+   ``CUDA_VISIBLE_DEVICES``, by UUID.  (c) The same trainer at 4 hosts
+   of 4 cards (topology 4x4) on 64 fabrics of 16 8-GPU nodes
+   (bench.py bench_fleet_scale's 1k hosts): evaluation ms on the host,
+   cold, on synced caches, and refused by a full fleet cold and from
+   the memo (``offers.eval.shortcircuit``); one fabric a gang, no card
+   reserved twice.
 8. Run last: every kernel against its plain version at each shape the
    train runs of phases 7, 11, 12 and 15 launched it at (K1 [24576,
    16384 or 4096, 2048] bf16, K2-K4 [192, 128 or 32, 2048, 2048, 128]
@@ -127,7 +144,13 @@ reduce_scatter, the ring hop; 64 MB a rank) over every card and
 cards: Ulysses and ring sp2, pp2; four: Ulysses and ring sp4 at a
 context of 8192, Ulysses sp2 x tp2, pp2 x dp2); nothing else but 17(c):
 the gang train worker's steplog beside shardcheck's NVLink wire model
-of its dp layout (``stepcompare``, reported, not gated).
+of its dp layout (``stepcompare``, reported, not gated), and, on four
+cards, 18(b): the trainer placed at 4 cards (topology 2x2) on the
+host trains from the evaluator's env (``CUDA_VISIBLE_DEVICES=0,1,2,3``)
+as an NCCL gang of four, K1-K4 on every rank; then two services'
+2-card trainers placed one after the other on the node, against one
+WAL, get cards 0,1 and 2,3 and train at once, each seeing only its own
+cards, by UUID.
 
 Each kernel's log line gives its error, its time, the plain version's,
 the library call's and the bound, the rate it reached (TFLOP/s) and its
@@ -137,7 +160,8 @@ run with exit code 3.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; each
 entry's ``launches`` sums the main-path runs, dense and MoE (phases 3,
-4, 7, 9, 11 and 12, both ranks of 12(b), of 13(b) and 14 and of 15),
+4, 7, 9, 11 and 12, both ranks of 12(b), of 13(b) and 14 and of 15,
+and the placed worker of 18(a)),
 and its ``design`` says how it computes (K1: a warp a
 row with 16-byte vector loads, launched through ctypes; K2-K4: wgmma
 with TMA-fed tiles in bf16, f32 FMA in f32).  The last line is ``{"ok":
@@ -2635,6 +2659,333 @@ def check_gang_shapes(shapes, gen):
     return errs
 
 
+# -- phase 18: the offer engine places the train worker ---------------------
+
+PLACED_STEPS = 2          # the placed worker's steps (TRAIN_STEPS)
+# the flagship width of phase 7, laid under the evaluator's env
+PLACED_WIDTH = {k: TRAIN_ENV[k] for k in (
+    "VOCAB", "D_MODEL", "N_LAYERS", "N_HEADS", "N_KV_HEADS", "D_FF",
+    "SEQ_LEN")}
+FLEET_FABRICS, FLEET_NODES = 64, 16   # 18(c): bench_fleet_scale's 1k hosts
+
+
+def machine_host():
+    """The GpuHost of this machine: its cards, CPUs, memory and disk.
+    Any card but an H100 fails the phase: the kernels are sm_90a."""
+    import socket
+
+    from dcos_commons_tpu_torch.offer import GpuHost
+
+    name = torch.cuda.get_device_properties(0).name
+    if "H100" not in name:
+        raise AssertionError(f"phase 18 places h100 pods; the card is {name}")
+    with open("/proc/meminfo") as f:
+        mem_kb = next(int(line.split()[1]) for line in f
+                      if line.startswith("MemTotal:"))
+    hostname = socket.gethostname()
+    return GpuHost(host_id=hostname, hostname=hostname, slice_id="local",
+                   generation="h100", node=0,
+                   gpus=torch.cuda.device_count(),
+                   cpus=float(os.cpu_count() or 1), memory_mb=mem_kb // 1024,
+                   disk_mb=shutil.disk_usage(ROOT).total // 2 ** 20)
+
+
+def render_trainer(name, root, count, chips, topology):
+    """The port's svc.yml trainer, rendered as an options-rendered
+    deploy would be, then through the port's validators."""
+    from dcos_commons_tpu_torch.specification import from_yaml_file
+    from dcos_commons_tpu_torch.specification.validation import (
+        validate_spec_change,
+    )
+    from dcos_commons_tpu_torch.tools import options
+
+    frameworks = os.path.join(ROOT, "dcos_commons_tpu_torch", "frameworks")
+    env = options.render_options(options.load_schema(frameworks), {})
+    env.update(FRAMEWORK_NAME=name, TRAINER_COUNT=str(count),
+               TPU_CHIPS_PER_HOST=str(chips), TPU_TOPOLOGY=topology,
+               TRAIN_STEPS=str(PLACED_STEPS), TRAINER_CPUS="1",
+               TRAINER_MEM="4096",
+               CHECKPOINT_DIR=os.path.join(root, name, "ckpt"))
+    spec = from_yaml_file(os.path.join(frameworks, "svc.yml"), env)
+    validate_spec_change(None, spec)
+    return spec
+
+
+class FleetView:
+    """Every service's claims on the shared hosts, what each service's
+    snapshots subtract (the JAX package's multi-service scheduler
+    merges its services' ledgers the same way)."""
+
+    def __init__(self, ledgers):
+        self.ledgers = ledgers
+
+    def reserved_on(self, host_id):
+        return [r for ledger in self.ledgers
+                for r in ledger.reserved_on(host_id)]
+
+
+def place_trainer(spec, persister, inventory, views=()):
+    """Evaluate the trainer's deploy requirement (every instance, its
+    worker task) with a StateStore and a ReservationLedger of its own
+    on ``persister``, commit the reservations and store the tasks.
+    Returns (task infos, ledger, evaluation ms on the host)."""
+    from dcos_commons_tpu_torch.offer import OfferEvaluator, ReservationLedger
+    from dcos_commons_tpu_torch.plan import PodInstanceRequirement
+    from dcos_commons_tpu_torch.state import StateStore
+
+    store = StateStore(persister, spec.name)
+    ledger = ReservationLedger(persister, spec.name)
+    evaluator = OfferEvaluator(store, ledger, spec.name, "smoke")
+    if views:
+        evaluator.set_snapshot_view(FleetView([*views, ledger]))
+    pod = spec.pod("trainer")
+    t0 = time.perf_counter()
+    result = evaluator.evaluate(PodInstanceRequirement(
+        pod=pod, instances=list(range(pod.count)),
+        tasks_to_launch=["worker"]), inventory)
+    ms = (time.perf_counter() - t0) * 1e3
+    if not result.passed:
+        raise AssertionError("\n".join(result.outcome.flatten()))
+    ledger.commit(result.reservations)
+    store.store_tasks(result.task_infos)
+    return result.task_infos, ledger, ms
+
+
+def launch_placed(info, width, sandbox):
+    """The worker as an agent starts it: the TaskInfo's env laid over
+    the model width, the parent's PATH and PYTHONPATH and nothing else
+    of its env, KEEPALIVE_S=0 (the RUNNING worker exits after its
+    steps), and the sandbox as cwd, SANDBOX and TMPDIR.  The child is
+    this script's ``--placed-child``: ``train_worker.main``, then its
+    kernel counters and the UUIDs of the cards it saw."""
+    os.makedirs(sandbox, exist_ok=True)
+    env = dict(width, **info.env, KEEPALIVE_S="0", SANDBOX=sandbox,
+               TMPDIR=sandbox, PATH=os.environ.get("PATH", ""),
+               PYTHONPATH=os.environ.get("PYTHONPATH", ""))
+    return subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--placed-child"],
+        env=env, cwd=sandbox, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def placed_child():
+    """``--placed-child``: run ``train_worker.main`` (it counts the
+    cards it can see and starts one rank a card), then print its
+    result as the line ``PLACED {...}``."""
+    from dcos_commons_tpu_torch.frameworks import train_worker
+
+    results = []
+    run = train_worker.train_gang
+
+    def keep(*args, **kw):
+        results.append(run(*args, **kw))
+        return results[-1]
+
+    train_worker.train_gang = keep
+    code = train_worker.main()
+    r = results[0]
+    print("PLACED " + json.dumps({
+        "exit": code, "losses": r.losses, "launches": r.launches,
+        "steps": r.steps - r.start, "batch": r.batch,
+        "seconds": r.seconds, "tokens_per_s": r.tokens_per_s,
+        "checkpoint_errors": r.checkpoint_errors,
+        "uuids": [str(torch.cuda.get_device_properties(i).uuid)
+                  for i in range(torch.cuda.device_count())]}), flush=True)
+    return code
+
+
+def wait_placed(label, proc, info, deadline_s):
+    """Wait for a placed child and hold it to its reservation: exit 0,
+    finite losses, K1-K4 launched on every rank, and the cards it saw,
+    by UUID, exactly the cards of its CUDA_VISIBLE_DEVICES as this
+    process reads them.  Returns its result."""
+    try:
+        out, _ = proc.communicate(timeout=deadline_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        raise AssertionError(f"{label}: still running after {deadline_s} s:"
+                             f"\n{out[-3000:]}")
+    lines = [line for line in out.splitlines() if line.startswith("PLACED ")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"{label}: exit {proc.returncode}\n"
+                             f"{out[-4000:]}")
+    r = json.loads(lines[-1][len("PLACED "):])
+    cards = [int(k) for k in info.env["CUDA_VISIBLE_DEVICES"].split(",")]
+    want = [str(torch.cuda.get_device_properties(k).uuid) for k in cards]
+    losses = list(r["losses"].values())
+    if r["exit"] != 0 or r["uuids"] != want or not losses or not all(
+            np.isfinite(losses)) or r["checkpoint_errors"]:
+        raise AssertionError(f"{label}: {r}, cards {cards} are {want}")
+    if len(r["launches"]) != len(cards) or not all(
+            n > 0 for rank in r["launches"] for n in rank.values()):
+        raise AssertionError(f"{label}: K1-K4 launches by rank "
+                             f"{r['launches']}")
+    return r
+
+
+def report_placed(label, r, eval_ms, cards, smi):
+    step_ms = r["seconds"] / r["steps"] * 1e3
+    log(f"{label}: evaluation {eval_ms:.3f} ms on the host; the worker on "
+        f"cards {cards} (UUIDs match): {r['steps']} steps, batch "
+        f"{r['batch']}, losses {r['losses']}, {step_ms:.1f} ms a step "
+        f"({r['tokens_per_s']:,.0f} tokens/s; the worker's own clock over "
+        f"its steps, the first and the checkpoint snapshots in it); K1-K4 "
+        f"launches by rank {r['launches']} ({smi})")
+
+
+def phase_placed(smi):
+    """18(a): the offer engine places the svc.yml trainer (one card,
+    topology 1x1) on this machine's GpuHost, commits it in a WAL ledger,
+    and the worker runs from the TaskInfo at the flagship width.
+    Returns its K1-K4 launches."""
+    from dcos_commons_tpu_torch.offer import SliceInventory
+    from dcos_commons_tpu_torch.storage import FileWalPersister
+
+    root = os.path.join(ROOT, "build", "smoke", "placed")
+    shutil.rmtree(root, ignore_errors=True)
+    host = machine_host()
+    spec = render_trainer("placed", root, 1, 1, "1x1")
+    persister = FileWalPersister(os.path.join(root, "wal"))
+    infos, ledger, eval_ms = place_trainer(spec, persister,
+                                           SliceInventory([host]))
+    persister.close()
+    (info,) = infos
+    log(f"18(a) placed {info.name} on {info.agent_id} ({host.gpus} "
+        "card(s)): "
+        + " ".join(f"{k}={v}" for k, v in sorted(info.env.items())
+                   if k.startswith(("TPU_", "CUDA_", "COORDINATOR"))))
+    torch.cuda.empty_cache()
+    proc = launch_placed(info, PLACED_WIDTH, os.path.join(root, "sandbox"))
+    r = wait_placed("18(a)", proc, info, 280)
+    report_placed("18(a) placed train worker", r, eval_ms,
+                  info.env["CUDA_VISIBLE_DEVICES"], smi)
+    shutil.rmtree(root, ignore_errors=True)
+    return r["launches"][0]
+
+
+def phase_fleet_scale():
+    """18(c): the svc.yml trainer (4 hosts of 4 cards, topology 4x4) on
+    64 fabrics of 16 8-GPU H100 nodes, host time only: a cold placement,
+    a second one on synced caches, then a fleet with no 4 free cards on
+    any node, refused cold and again from the memo."""
+    from dcos_commons_tpu_torch.metrics import Metrics
+    from dcos_commons_tpu_torch.offer import (
+        OfferEvaluator,
+        Reservation,
+        ReservationLedger,
+        SliceInventory,
+    )
+    from dcos_commons_tpu_torch.offer.inventory import make_test_fleet
+    from dcos_commons_tpu_torch.plan import PodInstanceRequirement
+    from dcos_commons_tpu_torch.state import StateStore
+    from dcos_commons_tpu_torch.storage import MemPersister
+
+    fleet = []
+    for f in range(FLEET_FABRICS):
+        fleet += make_test_fleet(f"fabric-{f:02d}", FLEET_NODES)
+    inventory = SliceInventory(fleet)
+    spec = render_trainer("fleet", os.path.join(ROOT, "build", "smoke"),
+                          4, 4, "4x4")
+    persister = MemPersister()
+    ledger = ReservationLedger(persister)
+    evaluator = OfferEvaluator(StateStore(persister), ledger, spec.name,
+                               "smoke")
+    evaluator.metrics = Metrics()
+
+    def evaluate(recovery):
+        from dcos_commons_tpu_torch.plan import RecoveryType
+
+        t0 = time.perf_counter()
+        result = evaluator.evaluate(PodInstanceRequirement(
+            pod=spec.pod("trainer"), instances=[0, 1, 2, 3],
+            tasks_to_launch=["worker"],
+            recovery_type=RecoveryType[recovery]), inventory)
+        return result, (time.perf_counter() - t0) * 1e3
+
+    times = {}
+    for label, recovery in (("cold", "NONE"), ("synced", "PERMANENT")):
+        result, times[label] = evaluate(recovery)
+        fabrics = {inventory.host(i.agent_id).slice_id
+                   for i in result.task_infos}
+        if not result.passed or len(fabrics) != 1:
+            raise AssertionError(f"18(c) {label}: {result.outcome.flatten()}")
+        ledger.commit(result.reservations)
+    filler = []
+    for host in fleet:
+        free = [c for c in host.chip_ids() if not any(
+            c in r.chip_ids for r in ledger.reserved_on(host.host_id))]
+        filler.append(Reservation(
+            reservation_id=f"fill-{host.host_id}", host_id=host.host_id,
+            task_name="filler-0-x", chip_ids=free[:len(free) - 3]))
+    ledger.commit(filler)
+    cards = [c for r in ledger.all() for c in r.chip_ids]
+    if len(cards) != len(set(cards)):
+        raise AssertionError("18(c): a card reserved twice")
+    for label in ("refused cold", "refused memoised"):
+        result, times[label] = evaluate("PERMANENT")
+        if result.passed:
+            raise AssertionError(f"18(c) {label} placed on a full fleet")
+    memo = evaluator.metrics.counters().get("offers.eval.shortcircuit", 0)
+    if memo != 1:
+        raise AssertionError(f"18(c): offers.eval.shortcircuit {memo}")
+    log(f"18(c) fleet of {len(fleet)} 8-GPU nodes ({FLEET_FABRICS} fabrics "
+        f"of {FLEET_NODES}), svc.yml trainer 4 x 4 cards, evaluation ms on "
+        "the host: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f"; offers.eval.shortcircuit {memo:g}; one fabric a gang, "
+        f"{len(cards)} cards reserved, none twice")
+    return times
+
+
+def phase_placed_gang(smi):
+    """18(b), ``--nccl-gang`` on four cards: the trainer (one host of 4
+    cards, topology 2x2) placed on this 4-card host trains from the
+    evaluator's env as an NCCL gang; then two services' 2-card trainers
+    placed one after the other on the same host, against one WAL, get
+    disjoint cards and train at once."""
+    from dcos_commons_tpu_torch.offer import SliceInventory
+    from dcos_commons_tpu_torch.storage import FileWalPersister
+
+    root = os.path.join(ROOT, "build", "smoke", "placed")
+    shutil.rmtree(root, ignore_errors=True)
+    host = machine_host()
+    inventory = SliceInventory([host])
+    width = dict(PLACED_WIDTH, N_LAYERS="2")
+    spec = render_trainer("gang", root, 1, 4, "2x2")
+    persister = FileWalPersister(os.path.join(root, "wal"))
+    (info,), gang_ledger, eval_ms = place_trainer(spec, persister, inventory)
+    if info.env["CUDA_VISIBLE_DEVICES"] != "0,1,2,3":
+        raise AssertionError(f"18(b) gang cards {info.env}")
+    r = wait_placed("18(b) gang", launch_placed(
+        info, width, os.path.join(root, "gang")), info, 400)
+    report_placed("18(b) placed NCCL gang of 4", r, eval_ms, "0,1,2,3", smi)
+    # the gang's worker has exited: its claims go back to the node
+    for claim in gang_ledger.all():
+        gang_ledger.release(claim.reservation_id)
+    placed, ledgers = [], [gang_ledger]
+    for name in ("pod-a", "pod-b"):
+        spec = render_trainer(name, root, 1, 2, "1x2")
+        (info,), ledger, eval_ms = place_trainer(spec, persister, inventory,
+                                                 views=ledgers)
+        ledgers.append(ledger)
+        placed.append((name, info, eval_ms))
+    persister.close()
+    got = [info.env["CUDA_VISIBLE_DEVICES"] for _, info, _ in placed]
+    if got != ["0,1", "2,3"]:
+        raise AssertionError(f"18(b) two pods on one node got cards {got}")
+    procs = [launch_placed(info, width, os.path.join(root, name))
+             for name, info, _ in placed]
+    results = [wait_placed(f"18(b) {name}", proc, info, 400)
+               for (name, info, _), proc in zip(placed, procs)]
+    if set(results[0]["uuids"]) & set(results[1]["uuids"]):
+        raise AssertionError("18(b) the two pods saw a card in common")
+    for (name, info, eval_ms), r in zip(placed, results):
+        report_placed(f"18(b) {name}, at once with the other", r, eval_ms,
+                      info.env["CUDA_VISIBLE_DEVICES"], smi)
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def nccl_gang_main(kind, smi):
     """``--nccl-gang``: the gang step over NCCL, one rank a card, on
     every card of the host (2 or 4), against one process; then the gang
@@ -2686,6 +3037,9 @@ def nccl_gang_main(kind, smi):
                    torch.bfloat16), 560,
         probe=True)
     log(f"15 NCCL x{n} launches over the ranks {launches}")
+    if n == 4:
+        watchdog.phase("18(b) placed workers on four cards", 900)
+        phase_placed_gang(smi)
     watchdog.stop()
     log(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2694,6 +3048,8 @@ def nccl_gang_main(kind, smi):
 
 
 def main():
+    if sys.argv[1:] == ["--placed-child"]:
+        return placed_child()
     if not torch.cuda.is_available():
         log("CUDA is not available: chip_smoke needs one NVIDIA card")
         return 2
@@ -2866,10 +3222,18 @@ def main():
     # phase 17: shardcheck against phase 7's measured peak and the card
     watchdog.phase("17 shardcheck", 120)
     phase_shardcheck(peaks["flagship"], smi)
+    # phase 18: the offer engine places the train worker on this
+    # machine, which runs from the evaluator's env (its launches are
+    # the child's own counters); then the evaluation at fleet size
+    watchdog.phase("18 placed train worker", 300)
+    placed_launches = phase_placed(smi)
+    watchdog.phase("18(c) fleet of 1,024 nodes", 120)
+    phase_fleet_scale()
     launches = {n: slot_launches[n] + paged_launches[n] + train_launches[n]
                 + moe_launches[n] + moe_train_launches[n]
                 + gang_one_launches[n] + gang_two_launches[n]
-                + serve_gang_launches[n] + long_counts[n] for n in logs}
+                + serve_gang_launches[n] + long_counts[n]
+                + placed_launches[n] for n in logs}
     for n in logs:
         train_shapes[n] |= (moe_train_shapes[n] | gang_two_shapes[n]
                             | long_shapes[n])

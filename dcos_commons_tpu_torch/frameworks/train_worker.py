@@ -69,8 +69,10 @@ sys.path.insert(
 class TrainResult:
     """What one ``train`` run did: the first step it ran (the resume
     stamp), the step count it ran to, the global batch, the drained
-    losses it printed, its tokens/s on the host clock, and the final
-    params (this rank's blocks)."""
+    losses it printed, its tokens/s on the host clock, the final
+    params (this rank's blocks), and the kernel launches (K1-K4, as
+    ``ops.kernel_launches`` counts them) of the run, one dict for each
+    local rank of the worker."""
 
     start: int
     steps: int
@@ -80,6 +82,7 @@ class TrainResult:
     params: Any
     losses: Dict[int, float] = field(default_factory=dict)
     checkpoint_errors: List[str] = field(default_factory=list)
+    launches: List[Dict[str, int]] = field(default_factory=list)
 
 
 def host_rows(mesh, worker_id: int, local_devices: int):
@@ -116,6 +119,7 @@ def train(env: Mapping[str, str],
         rank_rows,
     )
     from dcos_commons_tpu_torch.device import resolve_device
+    from dcos_commons_tpu_torch.ops import kernel_launches
     from dcos_commons_tpu_torch.models.transformer import (
         adamw,
         config_from_env,
@@ -153,6 +157,7 @@ def train(env: Mapping[str, str],
         synthetic_tokens,
     )
 
+    launched = kernel_launches()
     kind = env.get("TORCH_DEVICE") or "cuda"
     device = resolve_device(f"cuda:{local_rank}" if kind == "cuda" else kind)
     if device.type == "cuda":
@@ -350,9 +355,10 @@ def train(env: Mapping[str, str],
         f"{steps - start} steps, {tps:,.0f} tokens/s")
     if world > 1:
         torch.distributed.destroy_process_group()
+    launched = {k: n - launched[k] for k, n in kernel_launches().items()}
     return TrainResult(start=start, steps=steps, batch=batch, seconds=dt,
                        tokens_per_s=tps, params=params, losses=losses,
-                       checkpoint_errors=errors)
+                       checkpoint_errors=errors, launches=[launched])
 
 
 def _rank_entry(env, local_rank, local_devices, init_method, timeout_s,
@@ -382,7 +388,8 @@ def train_gang(env: Mapping[str, str], local_devices: int,
     process for one, else one spawned process each, and wait for them.
     A lone worker's ranks meet at a file store in a directory of their
     own; a gang's at ``COORDINATOR_ADDRESS``.  Returns local rank 0's
-    result (``params`` None when spawned); raises with the first
+    result (``params`` None when spawned) with every local rank's
+    ``launches``; raises with the first
     failing rank's traceback, or when ``deadline_s`` passes (every rank
     is stopped first)."""
     if local_devices == 1:
@@ -430,7 +437,8 @@ def train_gang(env: Mapping[str, str], local_devices: int,
                     p.join()
     log(f"worker {env.get('TPU_WORKER_ID', '0')}: {local_devices} ranks "
         "done")
-    return got[0]
+    return replace(got[0], launches=[got[r].launches[0]
+                                     for r in range(local_devices)])
 
 
 def main() -> int:

@@ -1,7 +1,14 @@
-"""Worker-side step telemetry (``steplog``).  The scheduler-side
-tracing of the JAX package's ``trace/`` (spans, flight recorder,
-exporters) belongs to the control plane and is not ported."""
+"""Tracing: worker-side step telemetry (``steplog``) and the control
+plane's spans and flight recorder (``span``, ``recorder``; ports of the
+JAX package's, which the offer evaluator records into).  The JAX
+package's exporters (``trace/export.py``) are not ported."""
 
+from dcos_commons_tpu_torch.trace.recorder import (
+    NULL_TRACER,
+    LaunchRef,
+    TraceRecorder,
+)
+from dcos_commons_tpu_torch.trace.span import NullSpan, Span
 from dcos_commons_tpu_torch.trace.steplog import (
     STEPLOG_NAME,
     InflightWindow,
@@ -9,4 +16,14 @@ from dcos_commons_tpu_torch.trace.steplog import (
     read_steplog,
 )
 
-__all__ = ["STEPLOG_NAME", "InflightWindow", "StepLog", "read_steplog"]
+__all__ = [
+    "NULL_TRACER",
+    "STEPLOG_NAME",
+    "InflightWindow",
+    "LaunchRef",
+    "NullSpan",
+    "Span",
+    "StepLog",
+    "TraceRecorder",
+    "read_steplog",
+]

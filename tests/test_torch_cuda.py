@@ -706,3 +706,72 @@ def test_ulysses_on_the_card_matches_cpu(no_tf32, tmp_path):
         torch.testing.assert_close(card[0], cpu[0], atol=atol, rtol=rtol)
         for got, want in zip(card[1:], cpu[1:]):
             torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+_UUIDS_CHILD = r"""
+import json, torch
+print(json.dumps([str(torch.cuda.get_device_properties(i).uuid)
+                  for i in range(torch.cuda.device_count())]))
+"""
+
+
+def test_evaluator_env_confines_a_child_to_its_card(tmp_path):
+    """A 1-card pod placed on this host by the port's evaluator (the
+    host built from the machine, every card free but card 0, which
+    another pod holds when the host has more): a child launched with
+    the TaskInfo's env sees exactly the reserved card, by UUID."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from dcos_commons_tpu_torch.offer import (
+        GpuHost,
+        OfferEvaluator,
+        Reservation,
+        ReservationLedger,
+        SliceInventory,
+    )
+    from dcos_commons_tpu_torch.plan import PodInstanceRequirement
+    from dcos_commons_tpu_torch.specification import from_yaml
+    from dcos_commons_tpu_torch.state import StateStore
+    from dcos_commons_tpu_torch.storage import FileWalPersister
+
+    n = torch.cuda.device_count()
+    host = GpuHost(host_id=socket.gethostname(), slice_id="local",
+                   generation="h100", gpus=n)
+    persister = FileWalPersister(str(tmp_path / "wal"), fsync=False)
+    ledger = ReservationLedger(persister)
+    if n > 1:
+        ledger.commit([Reservation(reservation_id="other",
+                                   host_id=host.host_id,
+                                   task_name="other-0-main",
+                                   chip_ids=host.chip_ids()[:1])])
+    spec = from_yaml("""
+name: confine
+pods:
+  probe:
+    count: 1
+    gpu: {generation: h100, chips-per-host: 1}
+    tasks:
+      main: {goal: ONCE, cmd: "python probe.py", cpus: 0.1, memory: 32}
+""")
+    result = OfferEvaluator(StateStore(persister), ledger, spec.name,
+                            "cfg").evaluate(
+        PodInstanceRequirement(pod=spec.pod("probe"), instances=[0]),
+        SliceInventory([host]))
+    assert result.passed, result.outcome.flatten()
+    env = result.task_infos[0].env
+    card = int(env["CUDA_VISIBLE_DEVICES"])
+    assert card == (1 if n > 1 else 0)
+    child_env = dict(env, PATH=os.environ.get("PATH", ""),
+                     PYTHONPATH=os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-c", _UUIDS_CHILD],
+                         env=child_env, capture_output=True, text=True,
+                         timeout=120, check=True)
+    import json
+
+    seen = json.loads(out.stdout.strip().splitlines()[-1])
+    assert seen == [str(torch.cuda.get_device_properties(card).uuid)]

@@ -91,6 +91,27 @@ def test_every_port_module_imports_without_jax():
         "dcos_commons_tpu_torch.analysis.linter",
         "dcos_commons_tpu_torch.analysis.shardcheck",
         "dcos_commons_tpu_torch.analysis.__main__",
+        "dcos_commons_tpu_torch.common",
+        "dcos_commons_tpu_torch.storage",
+        "dcos_commons_tpu_torch.storage.persister",
+        "dcos_commons_tpu_torch.storage.file_persister",
+        "dcos_commons_tpu_torch.storage.cache",
+        "dcos_commons_tpu_torch.state",
+        "dcos_commons_tpu_torch.state.state_store",
+        "dcos_commons_tpu_torch.trace.span",
+        "dcos_commons_tpu_torch.trace.recorder",
+        "dcos_commons_tpu_torch.plan",
+        "dcos_commons_tpu_torch.plan.status",
+        "dcos_commons_tpu_torch.plan.element",
+        "dcos_commons_tpu_torch.plan.backoff",
+        "dcos_commons_tpu_torch.plan.step",
+        "dcos_commons_tpu_torch.offer",
+        "dcos_commons_tpu_torch.offer.outcome",
+        "dcos_commons_tpu_torch.offer.inventory",
+        "dcos_commons_tpu_torch.offer.nvlink",
+        "dcos_commons_tpu_torch.offer.multislice",
+        "dcos_commons_tpu_torch.offer.ledger",
+        "dcos_commons_tpu_torch.offer.evaluate",
     } <= set(mods)
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT, REPO, *mods],
