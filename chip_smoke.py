@@ -116,8 +116,9 @@ CUDA card).  Phases, each fatal on failure:
    steps) evaluated with a StateStore and a ReservationLedger on a
    ``FileWalPersister`` under ``build/smoke/placed/``, its reservations
    committed; the worker then runs as a child whose env is the
-   TaskInfo's over the flagship width of phase 7 (``PLACED_WIDTH``)
-   with only PATH and PYTHONPATH of this process's env
+   TaskInfo's over the flagship width of phase 7 (``PLACED_WIDTH``) at
+   ``PLACED_DEPTH`` (2) layers (phase 19 runs it at full depth) with
+   only PATH and PYTHONPATH of this process's env
    (``--placed-child``: ``train_worker.main``, then its K1-K4 counters
    and the UUIDs of the cards it saw).  It must exit 0 with a finite
    loss, K1-K4 launched, and see exactly the card of its
@@ -127,6 +128,31 @@ CUDA card).  Phases, each fatal on failure:
    cold, on synced caches, and refused by a full fleet cold and from
    the memo (``offers.eval.shortcircuit``); one fabric a gang, no card
    reserved twice.
+19. The plan engine deploys the trainer: the scheduler's offer cycle
+   and status fan-in written out with the port's objects, on a
+   ``FileWalPersister`` under ``build/smoke/planned/``.  Phase 18's
+   trainer (one card, topology 1x1, 2 steps) is stored in a
+   ``ConfigStore`` as the target; ``PlanGenerator`` builds the deploy
+   plan and the ``collectives`` sidecar plan (interrupted); a
+   ``DefaultPlanCoordinator`` takes the recovery manager (on this
+   machine's ``GpuHost``), the deploy and the sidecar managers.  (a)
+   ``get_candidates``, ``start``, ``OfferEvaluator.evaluate``, the
+   ledger commit, the launch recorder and ``record_launch``; the worker
+   runs at ``PLACED_WIDTH`` from its TaskInfo as in 18(a), fed
+   TASK_STARTING and TASK_RUNNING, and the deploy plan must be
+   COMPLETE.  (b) While it runs, the sidecar plan is proceeded, its
+   step takes the evaluator's sidecar path on the trainer's instance
+   (the worker's ``CUDA_VISIBLE_DEVICES``, no card reserved anew), its
+   ``collective-bench`` command runs as a child on that card and must
+   exit 0, and its TASK_FINISHED completes the plan.  (c) The worker
+   (goal RUNNING) exits 0 after its steps: it must see exactly its card
+   by UUID and launch K1-K4 ``launches_per_step(12, 0)`` twice; its
+   TASK_FINISHED makes the recovery manager propose a TRANSIENT
+   relaunch of trainer-0, whose requirement, evaluated once, reuses the
+   deploy's reservation (the same card, the ledger unchanged) and is
+   not launched.  Host ms of each ``get_candidates`` and evaluation,
+   every plan's status after every status, and ``serialize_plan`` of
+   the three plans are printed.
 8. Run last: every kernel against its plain version at each shape the
    train runs of phases 7, 11, 12 and 15 launched it at (K1 [24576,
    16384 or 4096, 2048] bf16, K2-K4 [192, 128 or 32, 2048, 2048, 128]
@@ -172,6 +198,7 @@ the script fails before printing either.
 import contextlib
 import json
 import os
+import shlex
 import shutil
 import subprocess
 import sys
@@ -2666,6 +2693,10 @@ PLACED_STEPS = 2          # the placed worker's steps (TRAIN_STEPS)
 PLACED_WIDTH = {k: TRAIN_ENV[k] for k in (
     "VOCAB", "D_MODEL", "N_LAYERS", "N_HEADS", "N_KV_HEADS", "D_FF",
     "SEQ_LEN")}
+# 18(a)'s depth: phase 19 runs the same worker at the flagship depth
+# through the plan engine, and the cut (two 2.4 GB checkpoint writes in
+# place of 10.5 GB) keeps the one-card smoke near half its time limit
+PLACED_DEPTH = 2
 FLEET_FABRICS, FLEET_NODES = 64, 16   # 18(c): bench_fleet_scale's 1k hosts
 
 
@@ -2838,8 +2869,8 @@ def report_placed(label, r, eval_ms, cards, smi):
 def phase_placed(smi):
     """18(a): the offer engine places the svc.yml trainer (one card,
     topology 1x1) on this machine's GpuHost, commits it in a WAL ledger,
-    and the worker runs from the TaskInfo at the flagship width.
-    Returns its K1-K4 launches."""
+    and the worker runs from the TaskInfo at the flagship width,
+    ``PLACED_DEPTH`` layers.  Returns its K1-K4 launches."""
     from dcos_commons_tpu_torch.offer import SliceInventory
     from dcos_commons_tpu_torch.storage import FileWalPersister
 
@@ -2857,7 +2888,8 @@ def phase_placed(smi):
         + " ".join(f"{k}={v}" for k, v in sorted(info.env.items())
                    if k.startswith(("TPU_", "CUDA_", "COORDINATOR"))))
     torch.cuda.empty_cache()
-    proc = launch_placed(info, PLACED_WIDTH, os.path.join(root, "sandbox"))
+    width = dict(PLACED_WIDTH, N_LAYERS=str(PLACED_DEPTH))
+    proc = launch_placed(info, width, os.path.join(root, "sandbox"))
     r = wait_placed("18(a)", proc, info, 280)
     report_placed("18(a) placed train worker", r, eval_ms,
                   info.env["CUDA_VISIBLE_DEVICES"], smi)
@@ -2936,6 +2968,275 @@ def phase_fleet_scale():
         + f"; offers.eval.shortcircuit {memo:g}; one fabric a gang, "
         f"{len(cards)} cards reserved, none twice")
     return times
+
+
+# -- phase 19: the plan engine deploys the trainer -------------------------
+
+PLANNED_CHILD_S = 280     # the deploy's worker, as 18(a)'s
+SIDECAR_CHILD_S = 150     # the collective-bench sidecar
+
+
+class PlanCycle:
+    """The scheduler's offer cycle and status fan-in, written out by hand
+    with the port's objects (``dcos_commons_tpu/scheduler/scheduler.py``
+    ``_process_candidates`` and ``_process_status``): the candidates of
+    the coordinator, each step's requirement evaluated, the reservations
+    committed and the TaskInfos recorded before a launch, and every
+    status stored and handed to every plan manager.  The agent's part
+    is played by the caller, which starts the children and feeds their
+    statuses."""
+
+    def __init__(self, root, host):
+        from dcos_commons_tpu_torch.offer import (
+            OfferEvaluator,
+            ReservationLedger,
+            SliceInventory,
+        )
+        from dcos_commons_tpu_torch.plan import (
+            DefaultPlanCoordinator,
+            DefaultPlanManager,
+            PlanGenerator,
+        )
+        from dcos_commons_tpu_torch.recovery import (
+            DefaultRecoveryPlanManager,
+            NeverFailureMonitor,
+        )
+        from dcos_commons_tpu_torch.state import (
+            ConfigStore,
+            PersistentLaunchRecorder,
+            StateStore,
+        )
+        from dcos_commons_tpu_torch.storage import FileWalPersister
+
+        self.spec = render_trainer("planned", root, 1, 1, "1x1")
+        name = self.spec.name
+        self.persister = FileWalPersister(os.path.join(root, "wal"))
+        configs = ConfigStore(self.persister, name)
+        configs.set_target_config(configs.store(self.spec.to_dict()))
+        target = configs.get_target_config()
+        self.store = StateStore(self.persister, name)
+        self.ledger = ReservationLedger(self.persister, name)
+        self.recorder = PersistentLaunchRecorder(self.store)
+        self.inventory = SliceInventory([host])
+        self.evaluator = OfferEvaluator(self.store, self.ledger, name,
+                                        target)
+        generator = PlanGenerator()
+        raw = self.spec.plans
+        self.deploy = generator.generate(self.spec, "deploy", raw["deploy"],
+                                         self.store, target)
+        # a custom YAML plan is built interrupted, as the scheduler's
+        # builder leaves it, and started by POST /v1/plans/<name>/start
+        self.sidecar = generator.generate(
+            self.spec, "collectives", raw["collectives"], self.store, target)
+        self.sidecar.interrupt()
+        deploy = self.deploy
+
+        def externally_managed(asset):
+            return any(asset in s.get_asset_names() and not s.is_complete
+                       for s in deploy.all_steps())
+
+        self.recovery = DefaultRecoveryPlanManager(
+            self.spec, self.store, failure_monitor=NeverFailureMonitor(),
+            externally_managed=externally_managed)
+        self.recovery.inventory = self.inventory
+        self.managers = [self.recovery, DefaultPlanManager(self.deploy),
+                         DefaultPlanManager(self.sidecar)]
+        self.coordinator = DefaultPlanCoordinator(self.managers)
+        self.ms = {"get_candidates": [], "evaluate": []}
+
+    def plans(self):
+        return [self.recovery.get_plan(), self.deploy, self.sidecar]
+
+    def statuses(self):
+        return ", ".join(f"{p.name} {p.get_status().name}"
+                         for p in self.plans())
+
+    def candidates(self):
+        t0 = time.perf_counter()
+        steps = self.coordinator.get_candidates()
+        self.ms["get_candidates"].append((time.perf_counter() - t0) * 1e3)
+        log(f"19 get_candidates {self.ms['get_candidates'][-1]:.3f} ms on "
+            f"the host: {[s.name for s in steps]}")
+        return steps
+
+    def evaluate(self, step):
+        """The step's requirement through the evaluator; a refusal fails
+        the phase."""
+        requirement = step.start()
+        if requirement is None:
+            raise AssertionError(f"19: step {step.name} gave no requirement")
+        t0 = time.perf_counter()
+        result = self.evaluator.evaluate(requirement, self.inventory)
+        self.ms["evaluate"].append((time.perf_counter() - t0) * 1e3)
+        log(f"19 evaluate {requirement.name} "
+            f"{self.ms['evaluate'][-1]:.3f} ms on the host: "
+            f"{result.outcome.source} passed={result.passed}")
+        if not result.passed:
+            raise AssertionError("\n".join(result.outcome.flatten()))
+        return requirement, result
+
+    def launch(self, step, result):
+        """Reservations and TaskInfos durable before the launch (the
+        scheduler's WAL discipline), then the step's launch record."""
+        self.ledger.commit(result.reservations)
+        self.recorder.record(result.task_infos)
+        step.record_launch({i.name: i.task_id for i in result.task_infos})
+
+    def feed(self, info, state):
+        from dcos_commons_tpu_torch.common import TaskState, TaskStatus
+
+        status = TaskStatus(task_id=info.task_id, state=TaskState[state],
+                            agent_id=info.agent_id,
+                            ready=state == "RUNNING")
+        self.store.store_status(info.name, status)
+        for manager in self.managers:
+            manager.update(status)
+        log(f"19 {info.name} TASK_{state}: {self.statuses()}")
+
+    def expect(self, plan, status):
+        """The plan must be at ``status`` now: else the phase fails,
+        naming the plan and its steps' statuses."""
+        if plan.get_status().name != status:
+            steps = [(s.name, s.get_status().name) for s in plan.all_steps()]
+            raise AssertionError(f"19: plan {plan.name} is "
+                                 f"{plan.get_status().name}, not {status}: "
+                                 f"steps {steps}")
+
+
+def run_sidecar(info, sandbox, deadline_s):
+    """The sidecar task as an agent runs it: its command (``python``
+    the interpreter of this process) with the TaskInfo's env, PATH and
+    PYTHONPATH, its sandbox as SANDBOX and TMPDIR, from the checkout's
+    root (where ``-m`` finds the package).  Returns (exit code,
+    output)."""
+    os.makedirs(sandbox, exist_ok=True)
+    argv = shlex.split(info.command)
+    if argv[0] == "python":
+        argv[0] = sys.executable
+    env = dict(info.env, SANDBOX=sandbox, TMPDIR=sandbox,
+               PATH=os.environ.get("PATH", ""),
+               PYTHONPATH=os.environ.get("PYTHONPATH", ""))
+    try:
+        out = subprocess.run(argv, env=env, cwd=ROOT, capture_output=True,
+                             text=True, timeout=deadline_s)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"19(b) {info.name}: still running after "
+                             f"{deadline_s} s:\n{e.stdout}\n{e.stderr}")
+    return out.returncode, out.stdout + out.stderr
+
+
+def phase_planned(smi):
+    """19: the plan engine deploys the svc.yml trainer on this machine,
+    runs its collectives sidecar plan while it trains, and proposes the
+    reference's recovery step when it exits.  Returns its K1-K4
+    launches."""
+    from dcos_commons_tpu_torch.debug.trackers import serialize_plan
+    from dcos_commons_tpu_torch.plan import RecoveryType
+
+    root = os.path.join(ROOT, "build", "smoke", "planned")
+    shutil.rmtree(root, ignore_errors=True)
+    cycle = PlanCycle(root, machine_host())
+    log(f"19 plans built: {cycle.statuses()}")
+
+    # (a) deploy
+    steps = cycle.candidates()
+    if len(steps) != 1 or steps[0] not in cycle.deploy.all_steps():
+        raise AssertionError(f"19(a) candidates {[s.name for s in steps]}")
+    _, result = cycle.evaluate(steps[0])
+    (info,) = result.task_infos
+    cycle.launch(steps[0], result)
+    cards = [c for r in cycle.ledger.all() for c in r.chip_ids]
+    torch.cuda.empty_cache()
+    proc = launch_placed(info, PLACED_WIDTH, os.path.join(root, "sandbox"))
+    try:
+        cycle.feed(info, "STARTING")
+        cycle.feed(info, "RUNNING")
+        cycle.expect(cycle.deploy, "COMPLETE")
+
+        # (b) the collectives sidecar, while the worker trains
+        cycle.sidecar.proceed()
+        steps = cycle.candidates()
+        if len(steps) != 1 or steps[0] not in cycle.sidecar.all_steps():
+            raise AssertionError(f"19(b) candidates "
+                                 f"{[s.name for s in steps]}")
+        _, side = cycle.evaluate(steps[0])
+        (bench,) = side.task_infos
+        if (side.outcome.source != "colocate"
+                or any(r.chip_ids for r in side.reservations)
+                or bench.tpu_chip_ids
+                or bench.env["CUDA_VISIBLE_DEVICES"]
+                != info.env["CUDA_VISIBLE_DEVICES"]):
+            raise AssertionError(
+                f"19(b) sidecar: {side.outcome.source}, reservations "
+                f"{[r.to_dict() for r in side.reservations]}, env "
+                f"{bench.env.get('CUDA_VISIBLE_DEVICES')!r}")
+        cycle.launch(steps[0], side)
+        cycle.feed(bench, "STARTING")
+        cycle.feed(bench, "RUNNING")
+        t0 = time.monotonic()
+        code, out = run_sidecar(bench, os.path.join(root, "bench"),
+                                SIDECAR_CHILD_S)
+        cycle.feed(bench, "FINISHED" if code == 0 else "FAILED")
+        if code != 0:
+            raise AssertionError(f"19(b) {bench.name} exit {code}:\n"
+                                 f"{out[-3000:]}")
+        report = json.loads(next(line for line in reversed(out.splitlines())
+                                 if line.startswith("{")))
+        log(f"19(b) {bench.name} on cards {bench.env['CUDA_VISIBLE_DEVICES']}"
+            f" beside the training worker: exit 0 in "
+            f"{time.monotonic() - t0:.1f} s, {report['devices']} device(s) "
+            f"({smi})")
+        cycle.expect(cycle.sidecar, "COMPLETE")
+
+        # (c) the worker exits after its steps; recovery proposes the
+        # reference's step, evaluated once and not launched
+        r = wait_placed("19(a)", proc, info, PLANNED_CHILD_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    cycle.feed(info, "FINISHED" if r["exit"] == 0 else "FAILED")
+    want = {n: 2 * v for n, v in launches_per_step(
+        int(PLACED_WIDTH["N_LAYERS"]), 0).items()}
+    if r["launches"] != [want]:
+        raise AssertionError(f"19(a) K1-K4 launches {r['launches']}, "
+                             f"want [{want}]")
+    report_placed("19(a) planned train worker", r, cycle.ms["evaluate"][0],
+                  info.env["CUDA_VISIBLE_DEVICES"], smi)
+    cycle.expect(cycle.deploy, "COMPLETE")
+    steps = cycle.candidates()
+    if [s.name for s in steps] != ["recover-trainer-0"]:
+        raise AssertionError(f"19(c) candidates {[s.name for s in steps]}")
+    before = sorted(json.dumps(x.to_dict(), sort_keys=True)
+                    for x in cycle.ledger.all())
+    requirement, again = cycle.evaluate(steps[0])
+    relaunch = {i.name: i for i in again.task_infos}[info.name]
+    cycle.ledger.commit(again.reservations)
+    after = sorted(json.dumps(x.to_dict(), sort_keys=True)
+                   for x in cycle.ledger.all())
+    if (requirement.recovery_type is not RecoveryType.TRANSIENT
+            or requirement.instances != [0]
+            or again.outcome.source != "reuse" or again.reservations
+            or after != before or relaunch.tpu_chip_ids != cards
+            or relaunch.env["CUDA_VISIBLE_DEVICES"]
+            != info.env["CUDA_VISIBLE_DEVICES"]):
+        raise AssertionError(
+            f"19(c) recovery {requirement.name} "
+            f"{requirement.recovery_type.name}: {again.outcome.source}, "
+            f"new reservations {len(again.reservations)}, cards "
+            f"{relaunch.tpu_chip_ids} (deploy {cards}), ledger "
+            f"{'unchanged' if after == before else 'changed'}")
+    log(f"19(c) recovery proposes {steps[0].name}: "
+        f"{requirement.recovery_type.name} for {requirement.task_names()}"
+        f", reusing card {cards} with the ledger unchanged; not launched")
+    cycle.persister.close()
+    for plan in cycle.plans():
+        log(f"19 {plan.name}: {json.dumps(serialize_plan(plan))}")
+    log("19 host ms: " + ", ".join(
+        f"{k} {' / '.join(f'{v:.3f}' for v in vs)}"
+        for k, vs in cycle.ms.items()))
+    shutil.rmtree(root, ignore_errors=True)
+    return r["launches"][0]
 
 
 def phase_placed_gang(smi):
@@ -3229,11 +3530,15 @@ def main():
     placed_launches = phase_placed(smi)
     watchdog.phase("18(c) fleet of 1,024 nodes", 120)
     phase_fleet_scale()
+    # phase 19: the plan engine deploys the trainer, runs its sidecar
+    # plan and proposes its recovery (the launches are the child's)
+    watchdog.phase("19 plan engine deploys the trainer", 300)
+    planned_launches = phase_planned(smi)
     launches = {n: slot_launches[n] + paged_launches[n] + train_launches[n]
                 + moe_launches[n] + moe_train_launches[n]
                 + gang_one_launches[n] + gang_two_launches[n]
                 + serve_gang_launches[n] + long_counts[n]
-                + placed_launches[n] for n in logs}
+                + placed_launches[n] + planned_launches[n] for n in logs}
     for n in logs:
         train_shapes[n] |= (moe_train_shapes[n] | gang_two_shapes[n]
                             | long_shapes[n])

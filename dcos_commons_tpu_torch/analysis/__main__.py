@@ -1,8 +1,19 @@
-"""shardcheck CLI: ``python -m dcos_commons_tpu_torch.analysis shard``.
+"""The port's analysis CLI: ``python -m dcos_commons_tpu_torch.analysis
+shard|specs``.
 
-The ``shard`` subcommand of the JAX package's analysis CLI
-(``python -m dcos_commons_tpu.analysis shard``) over the port's
-framework directory, with its flags:
+Two subcommands of the JAX package's analysis CLI (``python -m
+dcos_commons_tpu.analysis shard|specs``) over the port's framework
+directory.  ``specs`` runs the ahead-of-time spec analyzer
+(analysis/speccheck.py), with its flags:
+
+    --json              one JSON document on stdout (specs.findings)
+    --root DIR          repo root (default: the one holding this package)
+    --host-cpus N       host shape the feasibility checks assume
+    --host-mem MB       (defaults: a ``GpuHost``'s 8 cpus, 16384 MB,
+    --host-disk MB      102400 MB)
+
+``shard`` (the default when no subcommand is given) runs shardcheck,
+with its flags:
 
     --json              one machine-readable JSON document on stdout
                         (shard.findings, shard.footprint / shard.cost
@@ -37,14 +48,52 @@ def _default_root() -> str:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    from dcos_commons_tpu_torch.analysis import shardcheck
-
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "specs":
+        return specs_main(argv[1:])
     if argv and argv[0] == "shard":
         argv = argv[1:]
+    return shard_main(argv)
+
+
+def specs_main(argv: List[str]) -> int:
+    from dcos_commons_tpu_torch.analysis import speccheck
+
+    parser = argparse.ArgumentParser(
+        prog="python -m dcos_commons_tpu_torch.analysis specs",
+        description="ahead-of-time spec analyzer (the port's frameworks)",
+    )
+    parser.add_argument("--json", action="store_true", dest="as_json")
+    parser.add_argument("--root", default=_default_root())
+    parser.add_argument("--host-cpus", type=float, default=8.0)
+    parser.add_argument("--host-mem", type=int, default=16384)
+    parser.add_argument("--host-disk", type=int, default=102400)
+    args = parser.parse_args(argv)
+    host_model = speccheck.HostModel(
+        cpus=args.host_cpus,
+        memory_mb=args.host_mem,
+        disk_mb=args.host_disk,
+    )
+    findings = speccheck.analyze_all(os.path.abspath(args.root), host_model)
+    rc = 1 if findings else 0
+    if args.as_json:
+        print(json.dumps({
+            "specs": {"findings": [f.to_dict() for f in findings]},
+            "exit_code": rc,
+        }, indent=2, sort_keys=True))
+        return rc
+    for finding in findings:
+        print(finding.render())
+    print(f"specs: {len(findings)} finding(s)")
+    return rc
+
+
+def shard_main(argv: List[str]) -> int:
+    from dcos_commons_tpu_torch.analysis import shardcheck
+
     parser = argparse.ArgumentParser(
         prog="python -m dcos_commons_tpu_torch.analysis shard",
-        description=__doc__.splitlines()[0],
+        description="sharding and memory analyzer (the port's frameworks)",
     )
     parser.add_argument("--json", action="store_true", dest="as_json")
     parser.add_argument("--catalog", action="store_true")

@@ -836,12 +836,6 @@ def _analyze_pod_task(
     rel: str, pod, task, builder, anchor, vocab,
     hbm_mb: int, giant_mb: float, reports_out: List[ShardReport],
 ) -> List[Finding]:
-    from dcos_commons_tpu_torch.parallel.mesh import (
-        SpecError as MeshSpecError,
-    )
-    from dcos_commons_tpu_torch.serve.paging import (
-        SpecError as PagingSpecError,
-    )
     from dcos_commons_tpu_torch.specification.specs import SpecError
 
     gpu = pod.gpu
@@ -850,7 +844,7 @@ def _analyze_pod_task(
     env = pod_task_mesh_env(pod, task)
     try:
         workload = builder(env, gpu, pod, task)
-    except (SpecError, MeshSpecError, PagingSpecError) as e:
+    except SpecError as e:
         return [Finding(rel, line, "shard-mesh", f"{where}: {e}")]
     except Exception as e:
         # a malformed env value (VOCAB: "not-a-number") or a broken

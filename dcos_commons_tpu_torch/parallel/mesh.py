@@ -32,11 +32,9 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-
-class SpecError(Exception):
-    """An env contract no mesh can satisfy (the JAX package's
-    ``specification.specs.SpecError``, of which the port keeps its own
-    copy)."""
+# an env contract no mesh can satisfy raises the one spec error, as the
+# JAX package's ``derive`` does; the name stays exported here
+from dcos_commons_tpu_torch.specification.specs import SpecError
 
 
 @dataclass(frozen=True)

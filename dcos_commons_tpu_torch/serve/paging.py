@@ -52,16 +52,16 @@ from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
+# a serving geometry that cannot serve raises the one spec error, as
+# the JAX package's ``paged_config_from_env`` does; the name stays
+# exported here
+from dcos_commons_tpu_torch.specification.specs import SpecError
+
 # physical page 0 is the TRASH page: never allocated, the scatter
 # target for padding/inactive-row writes in the device kernels (a
 # page-table entry of 0 also means "virtual page not yet allocated" —
 # such positions are always masked out of attention)
 TRASH_PAGE = 0
-
-
-class SpecError(Exception):
-    """A serving geometry that cannot serve (the port's own copy of
-    the JAX package's ``specification.specs.SpecError``)."""
 
 
 def pages_for(tokens: int, page_tokens: int) -> int:

@@ -112,6 +112,27 @@ def test_every_port_module_imports_without_jax():
         "dcos_commons_tpu_torch.offer.multislice",
         "dcos_commons_tpu_torch.offer.ledger",
         "dcos_commons_tpu_torch.offer.evaluate",
+        "dcos_commons_tpu_torch.plan.strategy",
+        "dcos_commons_tpu_torch.plan.phase",
+        "dcos_commons_tpu_torch.plan.plan",
+        "dcos_commons_tpu_torch.plan.plan_manager",
+        "dcos_commons_tpu_torch.plan.coordinator",
+        "dcos_commons_tpu_torch.plan.builders",
+        "dcos_commons_tpu_torch.plan.generator",
+        "dcos_commons_tpu_torch.state.config_store",
+        "dcos_commons_tpu_torch.state.framework_store",
+        "dcos_commons_tpu_torch.state.launch_recorder",
+        "dcos_commons_tpu_torch.state.schema",
+        "dcos_commons_tpu_torch.recovery",
+        "dcos_commons_tpu_torch.recovery.monitor",
+        "dcos_commons_tpu_torch.recovery.elastic",
+        "dcos_commons_tpu_torch.recovery.manager",
+        "dcos_commons_tpu_torch.decommission",
+        "dcos_commons_tpu_torch.decommission.factory",
+        "dcos_commons_tpu_torch.debug",
+        "dcos_commons_tpu_torch.debug.trackers",
+        "dcos_commons_tpu_torch.analysis",
+        "dcos_commons_tpu_torch.analysis.speccheck",
     } <= set(mods)
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT, REPO, *mods],

@@ -117,6 +117,35 @@ def test_mesh_from_env_on_one_rank():
         t_mesh.mesh_from_env(ENVS["host-4-topo-2x2"])
 
 
+@pytest.mark.parametrize("call", ["derive", "bad-topology", "chunk",
+                                  "pages"])
+def test_spec_errors_are_the_one_spec_error(call):
+    """``derive``'s and ``paged_config_from_env``'s errors are the
+    port's one ``specification.specs.SpecError``, as the reference's
+    are its ``specs.SpecError``: a caller that catches that class (an
+    admission gate, shardcheck) catches them all, with the reference's
+    message."""
+    from dcos_commons_tpu.serve import paging as j_paging
+    from dcos_commons_tpu_torch.serve import paging as t_paging
+    from dcos_commons_tpu_torch.specification import specs as t_specs
+
+    assert t_mesh.SpecError is t_specs.SpecError
+    assert t_paging.SpecError is t_specs.SpecError
+    calls = {
+        "derive": lambda m, p: m.derive(ENVS["host-4-topo-2x2"], 1),
+        "bad-topology": lambda m, p: m.derive({"TPU_TOPOLOGY": "2xq"}),
+        "chunk": lambda m, p: p.paged_config_from_env(
+            {"PREFILL_CHUNK_TOKENS": "0"}),
+        "pages": lambda m, p: p.paged_config_from_env(
+            {"KV_PAGES": "1", "MAX_LEN": "256"}),
+    }
+    with pytest.raises(JSpecError) as want:
+        calls[call](j_mesh, j_paging)
+    with pytest.raises(t_specs.SpecError) as got:
+        calls[call](t_mesh, t_paging)
+    assert str(got.value) == str(want.value)
+
+
 SPECS = [dict(dp=2), dict(tp=2), dict(dp=2, tp=2), dict(dcn=2, dp=2, tp=2),
          dict(dp=1, fsdp=2, tp=2), dict(ep=2, dp=2), dict(ep=2, tp=2, fsdp=2)]
 
