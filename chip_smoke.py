@@ -138,7 +138,8 @@ CUDA card).  Phases, each fatal on failure:
    machine's ``GpuHost``), the deploy and the sidecar managers.  (a)
    ``get_candidates``, ``start``, ``OfferEvaluator.evaluate``, the
    ledger commit, the launch recorder and ``record_launch``; the worker
-   runs at ``PLACED_WIDTH`` from its TaskInfo as in 18(a), fed
+   runs at ``PLACED_WIDTH`` and ``PLACED_DEPTH`` from its TaskInfo as
+   in 18(a), fed
    TASK_STARTING and TASK_RUNNING, and the deploy plan must be
    COMPLETE.  (b) While it runs, the sidecar plan is proceeded, its
    step takes the evaluator's sidecar path on the trainer's instance
@@ -146,13 +147,43 @@ CUDA card).  Phases, each fatal on failure:
    ``collective-bench`` command runs as a child on that card and must
    exit 0, and its TASK_FINISHED completes the plan.  (c) The worker
    (goal RUNNING) exits 0 after its steps: it must see exactly its card
-   by UUID and launch K1-K4 ``launches_per_step(12, 0)`` twice; its
+   by UUID and launch K1-K4 ``launches_per_step(PLACED_DEPTH, 0)``
+   twice; its
    TASK_FINISHED makes the recovery manager propose a TRANSIENT
    relaunch of trainer-0, whose requirement, evaluated once, reuses the
    deploy's reservation (the same card, the ledger unchanged) and is
    not launched.  Host ms of each ``get_candidates`` and evaluation,
    every plan's status after every status, and ``serialize_plan`` of
    the three plans are printed.
+20. The scheduler deploys the trainer through the local agent: a
+   ``DefaultScheduler`` wired from phase 19's parts (the port has no
+   builder yet) on a ``FileWalPersister`` under
+   ``build/smoke/scheduled/``, this machine's ``GpuHost``, and a
+   ``LocalProcessAgent`` whose tasks run under the native
+   ``task_exec`` supervisor (built with g++; no pure-Python
+   supervision here).  The agent lays each TaskInfo's env over its own
+   environment, which carries the flagship width and depth
+   (``PLACED_WIDTH``), the checkout on PYTHONPATH and ``python`` as
+   this interpreter.  Only ``run_cycle`` drives it, and every status
+   comes from ``agent.poll()``.  (a) The svc.yml trainer (one card,
+   1x1, 2 steps) deployed: the deploy plan COMPLETE on the agent's
+   TASK_RUNNING, the launch record ``native``, the worker's own report
+   of its card (its ``kernel launches`` log line in the sandbox) by
+   UUID against its ``CUDA_VISIBLE_DEVICES`` (``nvidia-smi
+   --query-compute-apps`` is read too; in a container it lists the
+   host's pids), 2 steps and K1-K4 exactly ``launches_per_step(12, 0)``
+   twice.  (b) The ``collectives`` plan proceeded: the bench runs
+   through the agent beside the worker on its card and its
+   TASK_FINISHED completes the plan.  (c) ``restart_pod("trainer", 0)``:
+   the agent kills the worker with the task's grace (the supervisor
+   forwards SIGTERM: exit 143), its process session is gone, and
+   recovery relaunches the worker and the sidecar (as the JAX scheduler
+   does, ``tests/test_torch_scheduler.py``) with no new reservation on
+   the same card; the relaunch restores checkpoint step 2, runs no
+   step, and the sidecar finishes again on the card.  Then the loop
+   stops, the agent kills the worker and shuts down, and no process
+   it started is left.  Host ms of each ``run_cycle`` that did work,
+   and the seconds to each milestone, are printed.
 8. Run last: every kernel against its plain version at each shape the
    train runs of phases 7, 11, 12 and 15 launched it at (K1 [24576,
    16384 or 4096, 2048] bf16, K2-K4 [192, 128 or 32, 2048, 2048, 128]
@@ -187,7 +218,8 @@ run with exit code 3.
 The line before the last is a JSON object ``{"kernels": [...]}``; each
 entry's ``launches`` sums the main-path runs, dense and MoE (phases 3,
 4, 7, 9, 11 and 12, both ranks of 12(b), of 13(b) and 14 and of 15,
-and the placed worker of 18(a)),
+the placed worker of 18(a), the planned one of 19(a) and the
+scheduled one of 20(a)),
 and its ``design`` says how it computes (K1: a warp a
 row with 16-byte vector loads, launched through ctypes; K2-K4: wgmma
 with TMA-fed tiles in bf16, f32 FMA in f32).  The last line is ``{"ok":
@@ -200,6 +232,7 @@ import json
 import os
 import shlex
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -333,12 +366,18 @@ class Watchdog:
 
     def __init__(self):
         self.timer = None
+        # run before the exit: a phase's processes outside this one's
+        # tree (a supervisor's sessions) must not outlive the run
+        self.cleanups = []
 
     def phase(self, name, seconds):
         self.stop()
 
         def expire():
             log(f"phase {name} exceeded its {seconds} s limit")
+            for cleanup in list(self.cleanups):
+                with contextlib.suppress(Exception):
+                    cleanup()
             os._exit(3)
 
         self.timer = threading.Timer(seconds, expire)
@@ -2693,9 +2732,10 @@ PLACED_STEPS = 2          # the placed worker's steps (TRAIN_STEPS)
 PLACED_WIDTH = {k: TRAIN_ENV[k] for k in (
     "VOCAB", "D_MODEL", "N_LAYERS", "N_HEADS", "N_KV_HEADS", "D_FF",
     "SEQ_LEN")}
-# 18(a)'s depth: phase 19 runs the same worker at the flagship depth
-# through the plan engine, and the cut (two 2.4 GB checkpoint writes in
-# place of 10.5 GB) keeps the one-card smoke near half its time limit
+# 18(a)'s and 19's depth: phase 20 runs the same worker at the
+# flagship depth through the scheduler and the local agent, and the cut
+# (two 2.4 GB checkpoint writes in place of 10.5 GB) keeps the one-card
+# smoke inside its time limit
 PLACED_DEPTH = 2
 FLEET_FABRICS, FLEET_NODES = 64, 16   # 18(c): bench_fleet_scale's 1k hosts
 
@@ -2736,7 +2776,8 @@ def render_trainer(name, root, count, chips, topology):
                TPU_CHIPS_PER_HOST=str(chips), TPU_TOPOLOGY=topology,
                TRAIN_STEPS=str(PLACED_STEPS), TRAINER_CPUS="1",
                TRAINER_MEM="4096",
-               CHECKPOINT_DIR=os.path.join(root, name, "ckpt"))
+               CHECKPOINT_DIR=os.path.join(root, name, "ckpt"),
+               TORCH_FRAMEWORK_DIR=frameworks)
     spec = from_yaml_file(os.path.join(frameworks, "svc.yml"), env)
     validate_spec_change(None, spec)
     return spec
@@ -3147,7 +3188,8 @@ def phase_planned(smi):
     cycle.launch(steps[0], result)
     cards = [c for r in cycle.ledger.all() for c in r.chip_ids]
     torch.cuda.empty_cache()
-    proc = launch_placed(info, PLACED_WIDTH, os.path.join(root, "sandbox"))
+    width = dict(PLACED_WIDTH, N_LAYERS=str(PLACED_DEPTH))
+    proc = launch_placed(info, width, os.path.join(root, "sandbox"))
     try:
         cycle.feed(info, "STARTING")
         cycle.feed(info, "RUNNING")
@@ -3196,8 +3238,7 @@ def phase_planned(smi):
             proc.kill()
             proc.communicate()
     cycle.feed(info, "FINISHED" if r["exit"] == 0 else "FAILED")
-    want = {n: 2 * v for n, v in launches_per_step(
-        int(PLACED_WIDTH["N_LAYERS"]), 0).items()}
+    want = {n: 2 * v for n, v in launches_per_step(PLACED_DEPTH, 0).items()}
     if r["launches"] != [want]:
         raise AssertionError(f"19(a) K1-K4 launches {r['launches']}, "
                              f"want [{want}]")
@@ -3237,6 +3278,471 @@ def phase_planned(smi):
         for k, vs in cycle.ms.items()))
     shutil.rmtree(root, ignore_errors=True)
     return r["launches"][0]
+
+
+# -- phase 20: the scheduler deploys the trainer through the local agent ---
+
+SCHEDULED_WAIT_S = 200    # each wait of phase 20 on the worker or the card
+# what restart_pod relaunches of the one-card trainer once its sidecar
+# finished, as the JAX scheduler does over a FakeAgent
+# (tests/test_torch_scheduler.py TRAINER_RELAUNCH): a gang pod
+# relaunches all of its tasks
+SCHEDULED_RELAUNCH = ["trainer-0-collective-bench", "trainer-0-worker"]
+
+
+def live_processes():
+    """(pid, session id, environ entries) of every live process in
+    /proc; a zombie, dead and waiting for its parent to read its
+    status, holds nothing and is left out."""
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                fields = f.read().rsplit(") ", 1)[1].split()
+            with open(f"/proc/{name}/environ", "rb") as f:
+                env = f.read().split(b"\0")
+        except (OSError, IndexError):
+            continue
+        # fields 3 and 6 of stat: the state and the session id
+        if fields[0] != "Z":
+            yield int(name), int(fields[3]), env
+
+
+def session_pids(sid):
+    """The live processes of session ``sid``: a task's tree, which the
+    supervisor starts in a session of its own."""
+    return [pid for pid, s, _ in live_processes() if s == sid]
+
+
+def sandbox_pids(workdir):
+    """The live processes an agent under ``workdir`` started: every
+    supervisor and every process of its task carries the ``SANDBOX``
+    the agent gave it, a directory of ``workdir``."""
+    mark = f"SANDBOX={workdir}{os.sep}".encode()
+    return [pid for pid, _, env in live_processes()
+            if any(v.startswith(mark) for v in env)]
+
+
+class ScheduledTrainer:
+    """Phase 20's scheduler: a ``DefaultScheduler`` wired by hand from the
+    parts ``PlanCycle`` wires (the port has no builder yet), over a
+    ``LocalProcessAgent`` whose tasks run under the native supervisor.
+    Every status the agent hands the scheduler is kept
+    (``polled``), every task it launches (``launched``) and every kill
+    it is asked for (``kills``)."""
+
+    def __init__(self, root, host):
+        from dcos_commons_tpu_torch.agent import LocalProcessAgent
+        from dcos_commons_tpu_torch.native import task_exec_path
+        from dcos_commons_tpu_torch.offer import (
+            OfferEvaluator,
+            ReservationLedger,
+            SliceInventory,
+        )
+        from dcos_commons_tpu_torch.plan import (
+            DefaultPlanManager,
+            PlanGenerator,
+        )
+        from dcos_commons_tpu_torch.recovery import (
+            DefaultRecoveryPlanManager,
+            NeverFailureMonitor,
+        )
+        from dcos_commons_tpu_torch.scheduler import DefaultScheduler
+        from dcos_commons_tpu_torch.state import ConfigStore, StateStore
+        from dcos_commons_tpu_torch.storage import FileWalPersister
+
+        # no pure-Python supervision on this phase: the supervisor must
+        # build and run
+        if not task_exec_path():
+            raise AssertionError("20: the native task supervisor did not "
+                                 "build (g++)")
+        self.spec = render_trainer("scheduled", root, 1, 1, "1x1")
+        name = self.spec.name
+        self.persister = FileWalPersister(os.path.join(root, "wal"))
+        configs = ConfigStore(self.persister, name)
+        configs.set_target_config(configs.store(self.spec.to_dict()))
+        target = configs.get_target_config()
+        store = StateStore(self.persister, name)
+        ledger = ReservationLedger(self.persister, name)
+        inventory = SliceInventory([host])
+        generator = PlanGenerator()
+        raw = self.spec.plans
+        deploy = generator.generate(self.spec, "deploy", raw["deploy"], store,
+                                    target)
+        sidecar = generator.generate(self.spec, "collectives",
+                                     raw["collectives"], store, target)
+        sidecar.interrupt()
+
+        def externally_managed(asset):
+            return any(asset in s.get_asset_names() and not s.is_complete
+                       for s in deploy.all_steps())
+
+        recovery = DefaultRecoveryPlanManager(
+            self.spec, store, failure_monitor=NeverFailureMonitor(),
+            externally_managed=externally_managed)
+        recovery.inventory = inventory
+        self.workdir = os.path.join(root, "agent")
+        self.agent = LocalProcessAgent(self.workdir, use_native=True)
+        self.polled, self.launched, self.kills = [], [], []
+        # where each incarnation's output begins in its sandbox's stdout
+        # (the incarnations of one task name append to one file)
+        self.offsets = {}
+        poll, launch_one = self.agent.poll, self.agent.launch_one
+        kill = self.agent.kill
+
+        def polled():
+            out = poll()
+            self.polled.extend(out)
+            return out
+
+        def launched(info, **kw):
+            self.launched.append(info)
+            path = os.path.join(self.agent.sandbox_of(info.name), "stdout")
+            self.offsets[info.task_id] = (os.path.getsize(path)
+                                          if os.path.exists(path) else 0)
+            return launch_one(info, **kw)
+
+        def killed(task_id, grace_period_s=0.0):
+            self.kills.append((task_id, grace_period_s))
+            return kill(task_id, grace_period_s)
+
+        self.agent.poll, self.agent.launch_one = polled, launched
+        self.agent.kill = killed
+        self.sched = DefaultScheduler(
+            spec=self.spec, state_store=store, ledger=ledger,
+            inventory=inventory, agent=self.agent,
+            evaluator=OfferEvaluator(store, ledger, name, target),
+            deploy_manager=DefaultPlanManager(deploy),
+            recovery_manager=recovery,
+            other_managers=[DefaultPlanManager(sidecar)],
+            config_store=configs)
+        self.cycle_ms = []
+
+    def statuses(self):
+        return ", ".join(f"{n} {p.get_status().name}"
+                         for n, p in sorted(self.sched.plans().items()))
+
+    def cycle(self):
+        """One ``run_cycle``; its host ms is kept when it did work (took a
+        status or launched)."""
+        statuses, launched = len(self.polled), len(self.launched)
+        t0 = time.perf_counter()
+        self.sched.run_cycle()
+        ms = (time.perf_counter() - t0) * 1e3
+        if len(self.polled) > statuses or len(self.launched) > launched:
+            self.cycle_ms.append(ms)
+            log(f"20 run_cycle {ms:.3f} ms on the host: "
+                f"{len(self.polled) - statuses} status(es), "
+                f"{len(self.launched) - launched} launch(es); "
+                f"{self.statuses()}")
+
+    def cycles_until(self, label, done, deadline_s=SCHEDULED_WAIT_S):
+        """Cycles (a fifth of a second apart) until ``done()``; the
+        phase fails at the deadline, or on a terminal status that is
+        not a kill the phase asked for or a sidecar's finish."""
+        end = time.monotonic() + deadline_s
+        seen = len(self.polled)
+        while not done():
+            if time.monotonic() > end:
+                raise AssertionError(f"20({label}): not done after "
+                                     f"{deadline_s} s: {self.statuses()}")
+            self.cycle()
+            for status in self.polled[seen:]:
+                if status.state.name in ("FAILED", "ERROR", "LOST"):
+                    raise AssertionError(
+                        f"20({label}): {status.task_id} "
+                        f"{status.state.value}: {status.message}; "
+                        + self.tail(status.task_id))
+            seen = len(self.polled)
+            time.sleep(0.2)
+
+    def task(self, name):
+        return self.sched.state_store.fetch_task(name)
+
+    def record(self, info):
+        """The supervisor's durable records of one incarnation."""
+        return os.path.join(self.agent.sandbox_of(info.name), ".super",
+                            info.task_id)
+
+    def launch_record(self, info):
+        """The agent's durable launch record of one incarnation
+        (``task.json``, renamed ``task.json.done`` once its fate was
+        delivered)."""
+        path = os.path.join(self.record(info), "task.json")
+        if not os.path.exists(path):
+            path += ".done"
+        with open(path) as f:
+            return json.load(f)
+
+    def tail(self, task_id):
+        name = task_id.split("__")[0]
+        out = []
+        for stream in ("stdout", "stderr"):
+            try:
+                with open(os.path.join(self.agent.sandbox_of(name),
+                                       stream)) as f:
+                    out.append(f"{stream}: {f.read()[-2000:]}")
+            except OSError:
+                pass
+        return "\n".join(out)
+
+    def running(self, info):
+        """True once the agent handed the scheduler TASK_RUNNING for this
+        incarnation."""
+        return any(s.task_id == info.task_id and s.state.name == "RUNNING"
+                   for s in self.polled)
+
+    def log_lines(self, info, prefix):
+        """The lines this incarnation wrote to its sandbox's stdout that
+        start with ``prefix``."""
+        try:
+            with open(os.path.join(self.agent.sandbox_of(info.name),
+                                   "stdout"), "rb") as f:
+                f.seek(self.offsets[info.task_id])
+                text = f.read().decode("utf-8", "replace")
+        except OSError:
+            return []
+        return [line for line in text.splitlines() if line.startswith(prefix)]
+
+    def wait_line(self, label, info, prefix):
+        """Cycles until the incarnation logs a line starting with
+        ``prefix``; returns it."""
+        self.cycles_until(label, lambda: self.log_lines(info, prefix))
+        return self.log_lines(info, prefix)[-1]
+
+
+def check_card(label, info, launches_line, child_pid):
+    """The worker of ``info`` on the card its reservation names: the
+    UUIDs its own ranks report (``kernel launches`` line) against the
+    cards of its ``CUDA_VISIBLE_DEVICES``, and what ``nvidia-smi
+    --query-compute-apps`` lists for the pids of its session."""
+    report = json.loads(launches_line[len("kernel launches "):])
+    cards = [int(k) for k in info.env["CUDA_VISIBLE_DEVICES"].split(",")]
+    want = [str(torch.cuda.get_device_properties(k).uuid) for k in cards]
+    if report["cards"] != want:
+        raise AssertionError(f"20({label}): the worker ran on "
+                             f"{report['cards']}, its reservation is "
+                             f"cards {cards} = {want}")
+    pids = set(session_pids(child_pid))
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,gpu_uuid",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    rows = [[f.strip() for f in row.split(",")] for row in apps if row]
+    ours = [(int(p), u) for p, u in rows if p.isdigit() and int(p) in pids]
+    if any(u.removeprefix("GPU-") not in want for _, u in ours):
+        raise AssertionError(f"20({label}): nvidia-smi puts the worker's "
+                             f"processes on {ours}, want {want}")
+    log(f"20({label}) the worker (session {child_pid}: pids {sorted(pids)}) "
+        f"on card {cards} by UUID {want}; nvidia-smi --query-compute-apps "
+        f"lists {rows}: "
+        + ("its pids on that UUID" if ours else
+           "no pid of this PID namespace (the card's apps are listed in "
+           "the host's), so the UUID is the worker's own report"))
+    return report["launches"]
+
+
+def phase_scheduled(smi, watchdog):
+    """20: ``DefaultScheduler.run_cycle`` deploys the svc.yml trainer (one
+    card, topology 1x1, 2 steps, the worker at the flagship width and
+    depth) through a ``LocalProcessAgent`` on this machine's
+    ``GpuHost``; runs its ``collectives`` sidecar through the agent
+    beside the worker; restarts the pod, and recovery relaunches the
+    worker on its card, where it restores its checkpoint.  Returns the
+    K1-K4 launches of the worker's run."""
+    root = os.path.join(ROOT, "build", "smoke", "scheduled")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "bin"))
+    # the agent host's environment, which LocalProcessAgent lays every
+    # task's env over: the flagship width, the checkout on PYTHONPATH,
+    # and ``python`` (the tasks' commands) this interpreter
+    shim = os.path.join(root, "bin", "python")
+    with open(shim, "w") as f:
+        f.write(f'#!/bin/sh\nexec {shlex.quote(sys.executable)} "$@"\n')
+    os.chmod(shim, 0o755)
+    host_env = dict(PLACED_WIDTH, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH", "")) if p),
+        PATH=os.path.join(root, "bin") + os.pathsep + os.environ["PATH"])
+    saved = {k: os.environ.get(k) for k in (*host_env, "KEEPALIVE_S")}
+    os.environ.update(host_env)
+    os.environ.pop("KEEPALIVE_S", None)
+    torch.cuda.empty_cache()
+    run = ScheduledTrainer(root, machine_host())
+
+    def kill_all():
+        for pid in sandbox_pids(run.workdir):
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+        run.agent.shutdown()
+
+    watchdog.cleanups.append(kill_all)
+    try:
+        launches = scheduled(run, smi)
+        # the end: the loop stops, the agent kills the worker (the
+        # relaunched sidecar may still run) and shuts down; then no
+        # process the agent started may be left
+        end = time.monotonic() + 10
+        while sandbox_pids(run.workdir) and time.monotonic() < end:
+            time.sleep(0.1)
+        left = sandbox_pids(run.workdir)
+    finally:
+        watchdog.cleanups.remove(kill_all)
+        kill_all()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        run.persister.close()
+    if left:
+        raise AssertionError(f"20: processes of the agent left: {left}")
+    log("20 run_cycle host ms where it did work: "
+        + " / ".join(f"{ms:.3f}" for ms in run.cycle_ms)
+        + f"; no process the agent started is left of "
+        f"{len(run.launched)} task launches")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def scheduled(run, smi):
+    """Phase 20's steps (a)-(c) and the end, on ``run``; returns the
+    K1-K4 launches of the deployed worker."""
+    sched = run.sched
+    log(f"20 plans built: {run.statuses()}")
+
+    # (a) deploy: cycles until the deploy plan is COMPLETE
+    t0 = time.monotonic()
+    run.cycles_until("a", lambda: sched.plan("deploy").is_complete)
+    info = run.task("trainer-0-worker")
+    deploy_s = time.monotonic() - t0
+    record = run.launch_record(info)
+    with open(os.path.join(run.record(info), "child.pid")) as f:
+        child = int(f.read())
+    if not record["native"] or not run.running(info):
+        raise AssertionError(f"20(a): native {record['native']}, "
+                             f"TASK_RUNNING polled {run.running(info)}")
+    log(f"20(a) deploy COMPLETE {deploy_s:.1f} s after the first cycle: "
+        f"{info.name} on {info.agent_id} under the native supervisor "
+        f"(session {child}), CUDA_VISIBLE_DEVICES="
+        f"{info.env['CUDA_VISIBLE_DEVICES']}, TASK_RUNNING from "
+        "agent.poll()")
+    line = run.wait_line("a", info, "kernel launches ")
+    steps = run.log_lines(info, "step ")
+    launches = check_card("a", info, line, child)
+    want = {n: 2 * v for n, v in launches_per_step(
+        int(PLACED_WIDTH["N_LAYERS"]), 0).items()}
+    if launches != [want] or len(steps) != PLACED_STEPS:
+        raise AssertionError(f"20(a): steps {steps}, K1-K4 launches "
+                             f"{launches}, want [{want}]")
+    log(f"20(a) the worker logged {steps} and K1-K4 launches {launches} "
+        f"in {time.monotonic() - t0:.1f} s ({smi})")
+
+    # (b) the collectives sidecar beside the worker
+    t0 = time.monotonic()
+    sched.plan("collectives").proceed()
+    run.cycles_until("b", lambda: sched.plan("collectives").is_complete)
+    bench = run.task("trainer-0-collective-bench")
+    finished = [s for s in run.polled if s.task_id == bench.task_id
+                and s.state.name == "FINISHED"]
+    native = run.launch_record(bench)["native"]
+    report = run.log_lines(bench, "{")
+    if (not finished or not native or not report
+            or bench.env["CUDA_VISIBLE_DEVICES"]
+            != info.env["CUDA_VISIBLE_DEVICES"]
+            or run.agent.active_task_ids() != {info.task_id}):
+        raise AssertionError(
+            f"20(b): FINISHED polled {bool(finished)}, native {native}, "
+            f"report {report}, cards {bench.env['CUDA_VISIBLE_DEVICES']}, "
+            f"active {run.agent.active_task_ids()}; "
+            + run.tail(bench.task_id))
+    log(f"20(b) {bench.name} beside the worker on cards "
+        f"{bench.env['CUDA_VISIBLE_DEVICES']}: TASK_FINISHED from "
+        f"agent.poll() in {time.monotonic() - t0:.1f} s, "
+        f"{json.loads(report[-1])['devices']} device(s); collectives "
+        "COMPLETE")
+
+    # (c) restart: the kill through the agent, recovery's relaunch
+    reserved = {r.reservation_id: (r.task_name, r.chip_ids)
+                for r in sched.ledger.all()}
+    t0 = time.monotonic()
+    killed = sched.restart_pod("trainer", 0)
+    before = len(run.launched)
+    run.cycles_until("c", lambda: any(
+        i.name == info.name for i in run.launched[before:])
+        and run.running(run.task(info.name)))
+    restart_s = time.monotonic() - t0
+    again = run.task(info.name)
+    relaunched = sorted(i.name for i in run.launched[before:])
+    gone = not session_pids(child)
+    # the worker's fate as the agent delivered it: the supervisor's exit
+    # (128 + the signal its task died of)
+    fate = [s.message for s in run.polled
+            if s.task_id == info.task_id and s.state.name == "KILLED"]
+    graces = sorted({g for t, g in run.kills if t == info.task_id})
+    after = {r.reservation_id: (r.task_name, r.chip_ids)
+             for r in sched.ledger.all()}
+    card = {k: v for k, v in reserved.items() if v[1]}
+    if (sorted(killed) != SCHEDULED_RELAUNCH
+            or relaunched != SCHEDULED_RELAUNCH or not gone
+            or fate != [f"exit {128 + signal.SIGTERM}"] or not graces
+            or not all(g > 0 for g in graces)
+            or not after.items() <= reserved.items() or len(card) != 1
+            or {k: v for k, v in after.items() if v[1]} != card
+            or again.env["CUDA_VISIBLE_DEVICES"]
+            != info.env["CUDA_VISIBLE_DEVICES"]):
+        raise AssertionError(
+            f"20(c): killed {killed}, relaunched {relaunched}, old session "
+            f"gone {gone}, fate {fate}, kill graces {graces}, reservations "
+            f"{reserved} -> {after}, cards "
+            f"{again.env['CUDA_VISIBLE_DEVICES']}")
+    with open(os.path.join(run.record(again), "child.pid")) as f:
+        child_again = int(f.read())
+    log(f"20(c) restart_pod killed {killed} (the agent asked for a "
+        f"{graces} s grace, the supervisor forwarded SIGTERM: {fate[0]}; "
+        f"its session gone before the relaunch allocated); recovery "
+        f"relaunched {relaunched} with no new reservation, the worker on "
+        f"its card's {card}, TASK_RUNNING {restart_s:.1f} s after the "
+        f"restart; the ledger {reserved} -> {after}")
+    restored = run.wait_line("c", again, "restored checkpoint step")
+    line = run.wait_line("c", again, "kernel launches ")
+    relaunch_launches = check_card("c", again, line, child_again)
+    if (restored != f"restored checkpoint step {PLACED_STEPS}"
+            or run.log_lines(again, "step ")
+            or relaunch_launches != [dict.fromkeys(want, 0)]):
+        raise AssertionError(f"20(c): {restored}, steps "
+                             f"{run.log_lines(again, 'step ')}, launches "
+                             f"{relaunch_launches}")
+    log(f"20(c) the relaunched worker: {restored!r}, no step run, "
+        f"{time.monotonic() - t0:.1f} s after the restart ({smi})")
+    # the relaunched sidecar (a gang pod relaunches every task) runs
+    # again beside the worker, on its card
+    bench_again = run.task(bench.name)
+    run.cycles_until("c", lambda: any(
+        s.task_id == bench_again.task_id and s.state.name == "FINISHED"
+        for s in run.polled))
+    if (bench_again.task_id == bench.task_id
+            or bench_again.env["CUDA_VISIBLE_DEVICES"]
+            != info.env["CUDA_VISIBLE_DEVICES"]):
+        raise AssertionError(f"20(c): the sidecar's relaunch "
+                             f"{bench_again.task_id} on cards "
+                             f"{bench_again.env['CUDA_VISIBLE_DEVICES']}")
+    log(f"20(c) the relaunched {bench.name} FINISHED on cards "
+        f"{bench_again.env['CUDA_VISIBLE_DEVICES']}, "
+        f"{time.monotonic() - t0:.1f} s after the restart")
+
+    # the end: the loop stops, the agent kills the worker and shuts down
+    sched.stop()
+    run.agent.kill(again.task_id, 3.0)
+    end = time.monotonic() + 30
+    while not any(s.task_id == again.task_id and s.state.name == "KILLED"
+                  for s in run.polled):
+        if time.monotonic() > end:
+            raise AssertionError("20: the relaunched worker outlived its kill")
+        run.agent.poll()
+        time.sleep(0.2)
+    run.agent.shutdown()
+    return launches[0]
 
 
 def phase_placed_gang(smi):
@@ -3534,11 +4040,18 @@ def main():
     # plan and proposes its recovery (the launches are the child's)
     watchdog.phase("19 plan engine deploys the trainer", 300)
     planned_launches = phase_planned(smi)
+    # phase 20: the scheduler deploys the trainer through the local
+    # agent, runs its sidecar, restarts it (the launches are the
+    # worker's, read from its sandbox)
+    watchdog.phase("20 the scheduler deploys the trainer through the "
+                   "local agent", 300)
+    scheduled_launches = phase_scheduled(smi, watchdog)
     launches = {n: slot_launches[n] + paged_launches[n] + train_launches[n]
                 + moe_launches[n] + moe_train_launches[n]
                 + gang_one_launches[n] + gang_two_launches[n]
                 + serve_gang_launches[n] + long_counts[n]
-                + placed_launches[n] + planned_launches[n] for n in logs}
+                + placed_launches[n] + planned_launches[n]
+                + scheduled_launches[n] for n in logs}
     for n in logs:
         train_shapes[n] |= (moe_train_shapes[n] | gang_two_shapes[n]
                             | long_shapes[n])

@@ -50,6 +50,7 @@ without the keep-alive, so a caller can drive it in-process;
 ``train_gang(env, k)`` starts and waits for a worker's k ranks.
 """
 
+import json
 import os
 import queue
 import sys
@@ -391,9 +392,14 @@ def train_gang(env: Mapping[str, str], local_devices: int,
     result (``params`` None when spawned) with every local rank's
     ``launches``; raises with the first
     failing rank's traceback, or when ``deadline_s`` passes (every rank
-    is stopped first)."""
+    is stopped first).  Its last log line is ``kernel launches {...}``:
+    the worker id, each local rank's K1-K4 launches and, on the card,
+    the UUIDs of the cards the ranks ran on (one a rank, in order), for
+    whoever reads the worker's log (an agent's sandbox)."""
     if local_devices == 1:
-        return train(env, log=log, timeout_s=timeout_s)
+        result = train(env, log=log, timeout_s=timeout_s)
+        _log_launches(env, result, log)
+        return result
     import multiprocessing
 
     env = dict(env)
@@ -437,8 +443,23 @@ def train_gang(env: Mapping[str, str], local_devices: int,
                     p.join()
     log(f"worker {env.get('TPU_WORKER_ID', '0')}: {local_devices} ranks "
         "done")
-    return replace(got[0], launches=[got[r].launches[0]
-                                     for r in range(local_devices)])
+    result = replace(got[0], launches=[got[r].launches[0]
+                                       for r in range(local_devices)])
+    _log_launches(env, result, log)
+    return result
+
+
+def _log_launches(env: Mapping[str, str], result: TrainResult,
+                  log: Callable[[str], None]) -> None:
+    import torch
+
+    cards = []
+    if (env.get("TORCH_DEVICE") or "cuda") == "cuda":
+        cards = [str(torch.cuda.get_device_properties(i).uuid)
+                 for i in range(len(result.launches))]
+    log("kernel launches " + json.dumps({
+        "worker": int(env.get("TPU_WORKER_ID", "0") or 0),
+        "launches": result.launches, "cards": cards}))
 
 
 def main() -> int:

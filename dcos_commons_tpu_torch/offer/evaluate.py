@@ -22,10 +22,12 @@ The card env: every task gets ``CUDA_VISIBLE_DEVICES``, the host-local
 indices of its reserved cards comma-joined in order, in place of the
 TPU's ``TPU_CHIPS_PER_HOST_BOUNDS``.  It is what confines a worker to
 its reservation on a shared node (the worker starts one rank a card it
-can see).  A task that holds no card gets "" and sees none (no var at
-all would mean every card of the host); a chip-less task launched into
-an existing pod instance (a sidecar plan's task) sees the instance's
-cards.
+can see).  A chip-less task of a pod instance that holds cards sees
+the instance's cards, whether its card holder launches with it (a
+gang's restart relaunches every task of the pod), before it (a sidecar
+plan's task) or again with it; a task of an instance without cards
+gets "" and sees none (no var at all would mean every card of the
+host).
 """
 
 from __future__ import annotations
@@ -522,10 +524,14 @@ class OfferEvaluator:
                 task_chips = sorted({
                     c for r in task_res for c in r.chip_ids
                 }, key=card_order)
-                # a chip-less task relaunched without the instance's
-                # card holder (a sidecar plan's task) sees its cards
-                visible = task_chips or self._instance_cards(
-                    requirement, index
+                # a chip-less task sees the instance's cards, whether
+                # its card holder is relaunched with it (a gang pod's
+                # restart relaunches every task) or not (a sidecar
+                # plan's task)
+                visible = task_chips or sorted(
+                    {c for r in reservations for c in r.chip_ids}
+                    | set(self._instance_cards(requirement, index)),
+                    key=card_order,
                 )
                 task_infos.append(
                     self._build_task_info(
@@ -1088,7 +1094,9 @@ class OfferEvaluator:
                 reservations=info_res, chips=list(task_chips),
                 coordinator=coordinator, worker_id=worker_id,
                 extra_env={**(extra_env or {}), **port_env},
-                visible=task_chips or visible,
+                # a chip-less sibling sees the instance's cards: those
+                # claimed in this call, else a sidecar's ``visible``
+                visible=task_chips or visible or list(chips),
             )
             task_infos.append(info)
         return reservations, task_infos

@@ -1,23 +1,40 @@
-"""Control-plane authentication: the shared bearer token (the port's
-copy of ``load_token``, ``check_bearer`` and ``auth_headers`` from the
-JAX package's ``security/auth.py``, line for line).
+"""Control-plane authentication: shared bearer token + TLS transport.
 
-One cluster auth token is shared by every control-plane process
-(operator-managed file, like a service-account secret).  Servers
-reject any request without ``Authorization: Bearer <token>`` (401);
-comparison is constant-time.  The router's discovery polls send it to
-the scheduler (``router/frontdoor.py`` ``fetch_endpoint``).  Without a
-token the control plane is loopback/trusted-network only.  TLS and the
-certificate tooling stay with the scheduler's package.
+Port of ``dcos_commons_tpu/security/auth.py``, line for line but
+``certs_main`` (``python -m dcos_commons_tpu certs``), which needs the
+certificate authority of ``security/tls.py`` that the port does not
+have yet.
+
+* a **cluster auth token** — one shared secret distributed to every
+  control-plane process (operator-managed file, like a service-account
+  secret).  Servers reject any request without
+  ``Authorization: Bearer <token>`` (401); comparison is
+  constant-time.  The router's discovery polls send it to the
+  scheduler (``router/frontdoor.py`` ``fetch_endpoint``), the local
+  agent's template fetches to ``/v1/artifacts``.
+* optional **TLS** — each server can serve HTTPS with a certificate
+  issued by the cluster CA; clients verify against the CA bundle.
+
+Trust model: without a token the control plane is
+**loopback/trusted-network only** — anyone who can reach an agent port
+can run commands.  ``--bind 0.0.0.0`` fleets must set a token and
+should add TLS so task secrets and TLS keys never transit plaintext.
 """
 
 from __future__ import annotations
 
 import hmac
 import os
-from typing import Mapping, Optional
+import secrets
+import ssl
+from typing import Mapping, Optional, Tuple
 
 AUTH_HEADER = "Authorization"
+
+
+def generate_token() -> str:
+    """256-bit random bearer token (hex)."""
+    return secrets.token_hex(32)
 
 
 def load_token(token: str = "", token_file: str = "",
@@ -46,3 +63,71 @@ def check_bearer(headers, token: str) -> bool:
 
 def auth_headers(token: str) -> dict:
     return {AUTH_HEADER: f"Bearer {token}"} if token else {}
+
+
+UNAUTHORIZED = (401, {"message": "missing or invalid bearer token"})
+
+
+# ---------------------------------------------------------------------------
+# TLS transport
+# ---------------------------------------------------------------------------
+
+
+def server_ssl_context(certfile: str, keyfile: str) -> ssl.SSLContext:
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    ctx.load_cert_chain(certfile, keyfile)
+    return ctx
+
+
+def client_ssl_context(ca_file: str = "") -> ssl.SSLContext:
+    """Verify servers against the cluster CA bundle; an empty ca_file
+    falls back to system trust (public certs)."""
+    if ca_file:
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+        ctx.load_verify_locations(ca_file)
+        ctx.check_hostname = True
+        ctx.verify_mode = ssl.CERT_REQUIRED
+        return ctx
+    return ssl.create_default_context()
+
+
+def tls_pair(cert: str, key: str) -> Optional[Tuple[str, str]]:
+    """Normalize a cert/key file pair; HALF a pair is a config error —
+    silently serving plaintext when the operator asked for TLS is the
+    one downgrade this module exists to prevent."""
+    if bool(cert) != bool(key):
+        raise ValueError(
+            "TLS requires BOTH a certificate and a key file; got only "
+            f"{'cert' if cert else 'key'} — refusing to serve plaintext"
+        )
+    return (cert, key) if cert else None
+
+
+def wrap_http_server(httpd, tls: Optional[Tuple[str, str]]):
+    """Wrap a stdlib HTTPServer's listening socket for HTTPS.
+
+    ``tls`` is (certfile, keyfile) or None (plain HTTP).  The TLS
+    handshake runs in the per-connection handler thread with a
+    timeout, NOT in the accept loop: a client that opens TCP and never
+    sends a ClientHello must not freeze the whole control-plane server
+    (these servers gate launches, state, and lease renewals — an
+    accept-loop stall would look like fleet-wide lease loss)."""
+    if tls:
+        ctx = server_ssl_context(tls[0], tls[1])
+        httpd.socket = ctx.wrap_socket(
+            httpd.socket, server_side=True, do_handshake_on_connect=False
+        )
+        inner_finish = httpd.finish_request
+
+        def finish_request(request, client_address):
+            request.settimeout(10.0)
+            request.do_handshake()
+            request.settimeout(None)
+            inner_finish(request, client_address)
+
+        httpd.finish_request = finish_request
+    return httpd
+
+
+def url_scheme(tls) -> str:
+    return "https" if tls else "http"

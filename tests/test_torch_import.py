@@ -133,6 +133,27 @@ def test_every_port_module_imports_without_jax():
         "dcos_commons_tpu_torch.debug.trackers",
         "dcos_commons_tpu_torch.analysis",
         "dcos_commons_tpu_torch.analysis.speccheck",
+        "dcos_commons_tpu_torch.health",
+        "dcos_commons_tpu_torch.health.journal",
+        "dcos_commons_tpu_torch.health.detectors",
+        "dcos_commons_tpu_torch.health.monitor",
+        "dcos_commons_tpu_torch.health.actions",
+        "dcos_commons_tpu_torch.ha",
+        "dcos_commons_tpu_torch.ha.rehydrate",
+        "dcos_commons_tpu_torch.ha.election",
+        "dcos_commons_tpu_torch.runtime",
+        "dcos_commons_tpu_torch.runtime.token_bucket",
+        "dcos_commons_tpu_torch.runtime.task_killer",
+        "dcos_commons_tpu_torch.runtime.reconciler",
+        "dcos_commons_tpu_torch.agent",
+        "dcos_commons_tpu_torch.agent.base",
+        "dcos_commons_tpu_torch.agent.local",
+        "dcos_commons_tpu_torch.testing",
+        "dcos_commons_tpu_torch.testing.fake_agent",
+        "dcos_commons_tpu_torch.scheduler",
+        "dcos_commons_tpu_torch.scheduler.config",
+        "dcos_commons_tpu_torch.scheduler.scheduler",
+        "dcos_commons_tpu_torch.native",
     } <= set(mods)
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT, REPO, *mods],

@@ -162,7 +162,8 @@ class Pair:
         for ji, ti in zip(jr.task_infos, tr.task_infos):
             assert info_key(ti) == info_key(ji, self.cmd_fix)
             assert rest_of_env(ti.env) == rest_of_env(ji.env, self.cmd_fix)
-            check_designed_env(ji, ti, launched, self.t.ledger)
+            check_designed_env(ji, ti, launched, self.t.ledger,
+                               tr.task_infos)
         if commit and jr.passed:
             self.j.commit(jr)
             self.t.commit(tr)
@@ -190,10 +191,10 @@ def rest_of_env(env, cmd_fix=lambda cmd: cmd):
     return {k: cmd_fix(v) for k, v in env.items() if k not in DESIGNED}
 
 
-def check_designed_env(ji, ti, launched, ledger):
+def check_designed_env(ji, ti, launched, ledger, launched_infos=()):
     """The designed differences, each its documented answer; ``ledger``
     holds what was committed before this evaluation, ``launched`` the
-    task names it launches."""
+    task names it launches, ``launched_infos`` their TaskInfos."""
     jenv, tenv = ji.env, ti.env
     assert ("TPU_CHIP_IDS" in tenv) == ("TPU_CHIP_IDS" in jenv)
     if "TPU_CHIP_IDS" in tenv:
@@ -206,13 +207,16 @@ def check_designed_env(ji, ti, launched, ledger):
         assert (jenv["TPU_GENERATION"], tenv["TPU_GENERATION"]) == (
             "v5e", "h100")
     # every task gets CUDA_VISIBLE_DEVICES: its own cards; a chip-less
-    # task launched without its instance's card holder (a sidecar) the
-    # instance's; any other chip-less task none
+    # task the cards of its instance, whether its card holder launches
+    # with it or holds them already (a sidecar); a task of an instance
+    # without cards none
+    instance = f"{ti.pod_type}-{ti.pod_index}-"
     visible = ti.tpu_chip_ids or sorted(
         {c for r in ledger.all()
-         if r.task_name.startswith(f"{ti.pod_type}-{ti.pod_index}-")
-         and r.task_name not in launched
-         for c in r.chip_ids}, key=card_order)
+         if r.task_name.startswith(instance) and r.task_name not in launched
+         for c in r.chip_ids}
+        | {c for i in launched_infos if i.name.startswith(instance)
+           for c in i.tpu_chip_ids}, key=card_order)
     assert tenv["CUDA_VISIBLE_DEVICES"] == ",".join(
         str(card_index(c)) for c in visible)
 
@@ -323,8 +327,10 @@ def scenario_partial_and_sidecar(pair):
 def scenario_colaunched_sidecar(pair):
     _, tr = pair.step("worker", [0])
     env = {i.name: i.env["CUDA_VISIBLE_DEVICES"] for i in tr.task_infos}
-    # the co-launched chip-less sibling sees no card
-    assert env == {"worker-0-main": "0,1,2,3", "worker-0-side": ""}
+    # the co-launched chip-less sibling reserves no card and sees the
+    # instance's, at the launch and at the relaunch of both
+    assert [i.tpu_chip_ids for i in tr.task_infos][1] == []
+    assert env == {"worker-0-main": "0,1,2,3", "worker-0-side": "0,1,2,3"}
     _, tr = pair.step("worker", [0], recovery="TRANSIENT", commit=False)
     assert {i.name: i.env["CUDA_VISIBLE_DEVICES"]
             for i in tr.task_infos} == env
