@@ -155,15 +155,17 @@ CUDA card).  Phases, each fatal on failure:
    not launched.  Host ms of each ``get_candidates`` and evaluation,
    every plan's status after every status, and ``serialize_plan`` of
    the three plans are printed.
-20. The scheduler deploys the trainer through the local agent: a
-   ``DefaultScheduler`` wired from phase 19's parts (the port has no
-   builder yet) on a ``FileWalPersister`` under
-   ``build/smoke/scheduled/``, this machine's ``GpuHost``, and a
+20. The scheduler deploys the trainer through the local agent: the
+   ``DefaultScheduler`` that ``SchedulerBuilder`` builds (plans from
+   the YAML, the sidecar plan interrupted, no launch backoff) on a
+   ``FileWalPersister`` under ``build/smoke/scheduled/``, this
+   machine's ``GpuHost``, and a
    ``LocalProcessAgent`` whose tasks run under the native
    ``task_exec`` supervisor (built with g++; no pure-Python
    supervision here).  The agent lays each TaskInfo's env over its own
-   environment, which carries the flagship width and depth
-   (``PLACED_WIDTH``), the checkout on PYTHONPATH and ``python`` as
+   environment, which carries the flagship width at ``PLACED_DEPTH``
+   (2) layers (phase 21 runs the full depth), the checkout on
+   PYTHONPATH and ``python`` as
    this interpreter.  Only ``run_cycle`` drives it, and every status
    comes from ``agent.poll()``.  (a) The svc.yml trainer (one card,
    1x1, 2 steps) deployed: the deploy plan COMPLETE on the agent's
@@ -171,7 +173,7 @@ CUDA card).  Phases, each fatal on failure:
    of its card (its ``kernel launches`` log line in the sandbox) by
    UUID against its ``CUDA_VISIBLE_DEVICES`` (``nvidia-smi
    --query-compute-apps`` is read too; in a container it lists the
-   host's pids), 2 steps and K1-K4 exactly ``launches_per_step(12, 0)``
+   host's pids), 2 steps and K1-K4 exactly ``launches_per_step(2, 0)``
    twice.  (b) The ``collectives`` plan proceeded: the bench runs
    through the agent beside the worker on its card and its
    TASK_FINISHED completes the plan.  (c) ``restart_pod("trainer", 0)``:
@@ -184,6 +186,34 @@ CUDA card).  Phases, each fatal on failure:
    stops, the agent kills the worker and shuts down, and no process
    it started is left.  Host ms of each ``run_cycle`` that did work,
    and the seconds to each milestone, are printed.
+21. The scheduler process through its entry points, under
+   ``build/smoke/served/``: a topology file with this machine's
+   ``GpuHost`` and a bearer token file (0600); ``python -m
+   dcos_commons_tpu_torch serve`` over the port's svc.yml with the
+   ``--env`` pairs phase 20's trainer is rendered with (one card, 1x1,
+   2 steps), a state directory, a sandbox root and an announce file,
+   as a subprocess in a session of its own whose environment carries
+   the flagship width and depth (12 layers); everything else through
+   ``python -m dcos_commons_tpu_torch cli`` subprocesses.  (a) A
+   request without the token exits 1 on HTTP 401; ``plan status
+   deploy`` reaches COMPLETE; the worker logs its 2 steps on the card
+   its reservation names, by UUID (``check_card``), with K1-K4 exactly
+   ``launches_per_step(12, 0)`` twice; ``pod status`` and ``debug
+   taskStatuses`` say TASK_RUNNING of the task id whose supervisor
+   session is alive.  (b) ``plan start collectives``: the bench
+   FINISHED (exit 0) on the worker's card.  (c) SIGTERM: ``serve``
+   exits 0, the worker runs on; ``serve`` again over the state
+   directory takes the instance lock, and the deployment (served as
+   the ``update`` plan after a restart, as the JAX runner serves it)
+   is COMPLETE with the same task id, no new incarnation and the same
+   card reservation.  (d) SIGTERM, then ``serve`` with
+   ``SDK_UNINSTALL=1``: the uninstall plan kills the worker (no grace,
+   as the reference's: exit 137 or 143), unreserves its card, wipes the
+   state tree and exits 0; no process of the sandbox root is left and
+   the card's free memory is back within 1 GiB of the phase's start.
+   Seconds to the announce, to deploy COMPLETE, to the worker's steps,
+   to the restart's reconciliation and to the uninstall's exit are
+   printed.
 8. Run last: every kernel against its plain version at each shape the
    train runs of phases 7, 11, 12 and 15 launched it at (K1 [24576,
    16384 or 4096, 2048] bf16, K2-K4 [192, 128 or 32, 2048, 2048, 128]
@@ -218,8 +248,8 @@ run with exit code 3.
 The line before the last is a JSON object ``{"kernels": [...]}``; each
 entry's ``launches`` sums the main-path runs, dense and MoE (phases 3,
 4, 7, 9, 11 and 12, both ranks of 12(b), of 13(b) and 14 and of 15,
-the placed worker of 18(a), the planned one of 19(a) and the
-scheduled one of 20(a)),
+the placed worker of 18(a), the planned one of 19(a), the
+scheduled one of 20(a) and the served one of 21(a)),
 and its ``design`` says how it computes (K1: a warp a
 row with 16-byte vector loads, launched through ctypes; K2-K4: wgmma
 with TMA-fed tiles in bf16, f32 FMA in f32).  The last line is ``{"ok":
@@ -2732,10 +2762,10 @@ PLACED_STEPS = 2          # the placed worker's steps (TRAIN_STEPS)
 PLACED_WIDTH = {k: TRAIN_ENV[k] for k in (
     "VOCAB", "D_MODEL", "N_LAYERS", "N_HEADS", "N_KV_HEADS", "D_FF",
     "SEQ_LEN")}
-# 18(a)'s and 19's depth: phase 20 runs the same worker at the
-# flagship depth through the scheduler and the local agent, and the cut
-# (two 2.4 GB checkpoint writes in place of 10.5 GB) keeps the one-card
-# smoke inside its time limit
+# 18(a)'s, 19's and 20's depth: phase 21 runs the same worker at the
+# flagship depth through the scheduler process, and the cut (2.4 GB
+# checkpoint writes in place of 10.5 GB) keeps the one-card smoke
+# inside its time limit
 PLACED_DEPTH = 2
 FLEET_FABRICS, FLEET_NODES = 64, 16   # 18(c): bench_fleet_scale's 1k hosts
 
@@ -2761,6 +2791,25 @@ def machine_host():
                    disk_mb=shutil.disk_usage(ROOT).total // 2 ** 20)
 
 
+FRAMEWORKS = os.path.join(ROOT, "dcos_commons_tpu_torch", "frameworks")
+
+
+def trainer_env(name, root, count, chips, topology):
+    """The env the port's svc.yml trainer is rendered with: its
+    options.json defaults, as an options-rendered deploy gives them, and
+    the trainer's size."""
+    from dcos_commons_tpu_torch.tools import options
+
+    env = options.render_options(options.load_schema(FRAMEWORKS), {})
+    env.update(FRAMEWORK_NAME=name, TRAINER_COUNT=str(count),
+               TPU_CHIPS_PER_HOST=str(chips), TPU_TOPOLOGY=topology,
+               TRAIN_STEPS=str(PLACED_STEPS), TRAINER_CPUS="1",
+               TRAINER_MEM="4096",
+               CHECKPOINT_DIR=os.path.join(root, name, "ckpt"),
+               TORCH_FRAMEWORK_DIR=FRAMEWORKS)
+    return env
+
+
 def render_trainer(name, root, count, chips, topology):
     """The port's svc.yml trainer, rendered as an options-rendered
     deploy would be, then through the port's validators."""
@@ -2768,17 +2817,9 @@ def render_trainer(name, root, count, chips, topology):
     from dcos_commons_tpu_torch.specification.validation import (
         validate_spec_change,
     )
-    from dcos_commons_tpu_torch.tools import options
 
-    frameworks = os.path.join(ROOT, "dcos_commons_tpu_torch", "frameworks")
-    env = options.render_options(options.load_schema(frameworks), {})
-    env.update(FRAMEWORK_NAME=name, TRAINER_COUNT=str(count),
-               TPU_CHIPS_PER_HOST=str(chips), TPU_TOPOLOGY=topology,
-               TRAIN_STEPS=str(PLACED_STEPS), TRAINER_CPUS="1",
-               TRAINER_MEM="4096",
-               CHECKPOINT_DIR=os.path.join(root, name, "ckpt"),
-               TORCH_FRAMEWORK_DIR=frameworks)
-    spec = from_yaml_file(os.path.join(frameworks, "svc.yml"), env)
+    spec = from_yaml_file(os.path.join(FRAMEWORKS, "svc.yml"),
+                          trainer_env(name, root, count, chips, topology))
     validate_spec_change(None, spec)
     return spec
 
@@ -3325,31 +3366,23 @@ def sandbox_pids(workdir):
 
 
 class ScheduledTrainer:
-    """Phase 20's scheduler: a ``DefaultScheduler`` wired by hand from the
-    parts ``PlanCycle`` wires (the port has no builder yet), over a
-    ``LocalProcessAgent`` whose tasks run under the native supervisor.
-    Every status the agent hands the scheduler is kept
-    (``polled``), every task it launches (``launched``) and every kill
-    it is asked for (``kills``)."""
+    """Phase 20's scheduler: the ``DefaultScheduler`` that
+    ``SchedulerBuilder`` builds for the svc.yml trainer (plans from the
+    YAML, the sidecar plan interrupted, recovery deferring to the
+    deploy plan) over a ``FileWalPersister``, this machine's
+    ``GpuHost`` and a ``LocalProcessAgent`` whose tasks run under the
+    native supervisor.  Every status the agent hands the scheduler is
+    kept (``polled``), every task it launches (``launched``) and every
+    kill it is asked for (``kills``)."""
 
     def __init__(self, root, host):
         from dcos_commons_tpu_torch.agent import LocalProcessAgent
         from dcos_commons_tpu_torch.native import task_exec_path
-        from dcos_commons_tpu_torch.offer import (
-            OfferEvaluator,
-            ReservationLedger,
-            SliceInventory,
+        from dcos_commons_tpu_torch.offer import SliceInventory
+        from dcos_commons_tpu_torch.scheduler import (
+            SchedulerBuilder,
+            SchedulerConfig,
         )
-        from dcos_commons_tpu_torch.plan import (
-            DefaultPlanManager,
-            PlanGenerator,
-        )
-        from dcos_commons_tpu_torch.recovery import (
-            DefaultRecoveryPlanManager,
-            NeverFailureMonitor,
-        )
-        from dcos_commons_tpu_torch.scheduler import DefaultScheduler
-        from dcos_commons_tpu_torch.state import ConfigStore, StateStore
         from dcos_commons_tpu_torch.storage import FileWalPersister
 
         # no pure-Python supervision on this phase: the supervisor must
@@ -3358,30 +3391,7 @@ class ScheduledTrainer:
             raise AssertionError("20: the native task supervisor did not "
                                  "build (g++)")
         self.spec = render_trainer("scheduled", root, 1, 1, "1x1")
-        name = self.spec.name
         self.persister = FileWalPersister(os.path.join(root, "wal"))
-        configs = ConfigStore(self.persister, name)
-        configs.set_target_config(configs.store(self.spec.to_dict()))
-        target = configs.get_target_config()
-        store = StateStore(self.persister, name)
-        ledger = ReservationLedger(self.persister, name)
-        inventory = SliceInventory([host])
-        generator = PlanGenerator()
-        raw = self.spec.plans
-        deploy = generator.generate(self.spec, "deploy", raw["deploy"], store,
-                                    target)
-        sidecar = generator.generate(self.spec, "collectives",
-                                     raw["collectives"], store, target)
-        sidecar.interrupt()
-
-        def externally_managed(asset):
-            return any(asset in s.get_asset_names() and not s.is_complete
-                       for s in deploy.all_steps())
-
-        recovery = DefaultRecoveryPlanManager(
-            self.spec, store, failure_monitor=NeverFailureMonitor(),
-            externally_managed=externally_managed)
-        recovery.inventory = inventory
         self.workdir = os.path.join(root, "agent")
         self.agent = LocalProcessAgent(self.workdir, use_native=True)
         self.polled, self.launched, self.kills = [], [], []
@@ -3409,14 +3419,14 @@ class ScheduledTrainer:
 
         self.agent.poll, self.agent.launch_one = polled, launched
         self.agent.kill = killed
-        self.sched = DefaultScheduler(
-            spec=self.spec, state_store=store, ledger=ledger,
-            inventory=inventory, agent=self.agent,
-            evaluator=OfferEvaluator(store, ledger, name, target),
-            deploy_manager=DefaultPlanManager(deploy),
-            recovery_manager=recovery,
-            other_managers=[DefaultPlanManager(sidecar)],
-            config_store=configs)
+        # no launch backoff, as phase 19's plans
+        config = SchedulerConfig(sandbox_root=self.workdir,
+                                 backoff_enabled=False)
+        self.sched = (SchedulerBuilder(self.spec, config,
+                                       persister=self.persister)
+                      .set_inventory(SliceInventory([host]))
+                      .set_agent(self.agent)
+                      .build())
         self.cycle_ms = []
 
     def statuses(self):
@@ -3512,8 +3522,24 @@ class ScheduledTrainer:
         return self.log_lines(info, prefix)[-1]
 
 
+def agent_host_env(root, **extra):
+    """The agent host's environment, which ``LocalProcessAgent`` lays
+    every task's env over: the flagship width (``extra`` overrides it),
+    the checkout on PYTHONPATH, and ``python`` (the tasks' commands)
+    this interpreter, through a shim under ``root``."""
+    os.makedirs(os.path.join(root, "bin"))
+    shim = os.path.join(root, "bin", "python")
+    with open(shim, "w") as f:
+        f.write(f'#!/bin/sh\nexec {shlex.quote(sys.executable)} "$@"\n')
+    os.chmod(shim, 0o755)
+    return dict(PLACED_WIDTH, **extra, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH", "")) if p),
+        PATH=os.path.join(root, "bin") + os.pathsep + os.environ["PATH"])
+
+
 def check_card(label, info, launches_line, child_pid):
-    """The worker of ``info`` on the card its reservation names: the
+    """The worker of ``info`` on the card its reservation names (``label``
+    names the phase's step in the messages): the
     UUIDs its own ranks report (``kernel launches`` line) against the
     cards of its ``CUDA_VISIBLE_DEVICES``, and what ``nvidia-smi
     --query-compute-apps`` lists for the pids of its session."""
@@ -3521,7 +3547,7 @@ def check_card(label, info, launches_line, child_pid):
     cards = [int(k) for k in info.env["CUDA_VISIBLE_DEVICES"].split(",")]
     want = [str(torch.cuda.get_device_properties(k).uuid) for k in cards]
     if report["cards"] != want:
-        raise AssertionError(f"20({label}): the worker ran on "
+        raise AssertionError(f"{label}: the worker ran on "
                              f"{report['cards']}, its reservation is "
                              f"cards {cards} = {want}")
     pids = set(session_pids(child_pid))
@@ -3532,9 +3558,9 @@ def check_card(label, info, launches_line, child_pid):
     rows = [[f.strip() for f in row.split(",")] for row in apps if row]
     ours = [(int(p), u) for p, u in rows if p.isdigit() and int(p) in pids]
     if any(u.removeprefix("GPU-") not in want for _, u in ours):
-        raise AssertionError(f"20({label}): nvidia-smi puts the worker's "
+        raise AssertionError(f"{label}: nvidia-smi puts the worker's "
                              f"processes on {ours}, want {want}")
-    log(f"20({label}) the worker (session {child_pid}: pids {sorted(pids)}) "
+    log(f"{label} the worker (session {child_pid}: pids {sorted(pids)}) "
         f"on card {cards} by UUID {want}; nvidia-smi --query-compute-apps "
         f"lists {rows}: "
         + ("its pids on that UUID" if ours else
@@ -3544,26 +3570,17 @@ def check_card(label, info, launches_line, child_pid):
 
 
 def phase_scheduled(smi, watchdog):
-    """20: ``DefaultScheduler.run_cycle`` deploys the svc.yml trainer (one
-    card, topology 1x1, 2 steps, the worker at the flagship width and
-    depth) through a ``LocalProcessAgent`` on this machine's
+    """20: ``DefaultScheduler.run_cycle`` (the scheduler
+    ``SchedulerBuilder`` builds) deploys the svc.yml trainer (one card,
+    topology 1x1, 2 steps, the worker at the flagship width and
+    ``PLACED_DEPTH`` layers) through a ``LocalProcessAgent`` on this machine's
     ``GpuHost``; runs its ``collectives`` sidecar through the agent
     beside the worker; restarts the pod, and recovery relaunches the
     worker on its card, where it restores its checkpoint.  Returns the
     K1-K4 launches of the worker's run."""
     root = os.path.join(ROOT, "build", "smoke", "scheduled")
     shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(os.path.join(root, "bin"))
-    # the agent host's environment, which LocalProcessAgent lays every
-    # task's env over: the flagship width, the checkout on PYTHONPATH,
-    # and ``python`` (the tasks' commands) this interpreter
-    shim = os.path.join(root, "bin", "python")
-    with open(shim, "w") as f:
-        f.write(f'#!/bin/sh\nexec {shlex.quote(sys.executable)} "$@"\n')
-    os.chmod(shim, 0o755)
-    host_env = dict(PLACED_WIDTH, PYTHONPATH=os.pathsep.join(
-        p for p in (ROOT, os.environ.get("PYTHONPATH", "")) if p),
-        PATH=os.path.join(root, "bin") + os.pathsep + os.environ["PATH"])
+    host_env = agent_host_env(root, N_LAYERS=str(PLACED_DEPTH))
     saved = {k: os.environ.get(k) for k in (*host_env, "KEEPALIVE_S")}
     os.environ.update(host_env)
     os.environ.pop("KEEPALIVE_S", None)
@@ -3629,9 +3646,9 @@ def scheduled(run, smi):
         "agent.poll()")
     line = run.wait_line("a", info, "kernel launches ")
     steps = run.log_lines(info, "step ")
-    launches = check_card("a", info, line, child)
-    want = {n: 2 * v for n, v in launches_per_step(
-        int(PLACED_WIDTH["N_LAYERS"]), 0).items()}
+    launches = check_card("20(a)", info, line, child)
+    want = {n: 2 * v for n, v in launches_per_step(PLACED_DEPTH,
+                                                    0).items()}
     if launches != [want] or len(steps) != PLACED_STEPS:
         raise AssertionError(f"20(a): steps {steps}, K1-K4 launches "
                              f"{launches}, want [{want}]")
@@ -3706,7 +3723,7 @@ def scheduled(run, smi):
         f"restart; the ledger {reserved} -> {after}")
     restored = run.wait_line("c", again, "restored checkpoint step")
     line = run.wait_line("c", again, "kernel launches ")
-    relaunch_launches = check_card("c", again, line, child_again)
+    relaunch_launches = check_card("20(c)", again, line, child_again)
     if (restored != f"restored checkpoint step {PLACED_STEPS}"
             or run.log_lines(again, "step ")
             or relaunch_launches != [dict.fromkeys(want, 0)]):
@@ -3742,6 +3759,349 @@ def scheduled(run, smi):
         run.agent.poll()
         time.sleep(0.2)
     run.agent.shutdown()
+    return launches[0]
+
+
+# -- phase 21: the scheduler process, through its entry points -------------
+
+SERVED_WAIT_S = 240       # each wait of phase 21 on the process or the worker
+SERVED_NAME = "served"
+GIB = 1 << 30
+
+
+class ServedTrainer:
+    """Phase 21's scheduler process: ``python -m dcos_commons_tpu_torch
+    serve`` over the port's svc.yml trainer (one card, 1x1, 2 steps),
+    this machine's ``GpuHost`` in a topology file, a state directory, a
+    sandbox root and a bearer token, driven only through ``python -m
+    dcos_commons_tpu_torch cli``.  Each ``serve`` runs in a session of
+    its own, its output in ``serve<n>.log``."""
+
+    def __init__(self, root, host, host_env):
+        self.root = root
+        self.state = os.path.join(root, "state")
+        self.sandbox = os.path.join(root, "agent")
+        self.token = os.path.join(root, "token")
+        self.announce = os.path.join(root, "url")
+        self.topology = os.path.join(root, "cluster.yml")
+        # JSON is YAML: the topology file's one GPU host
+        with open(self.topology, "w") as f:
+            json.dump({"hosts": [{
+                "host_id": host.host_id, "hostname": host.hostname,
+                "slice_id": host.slice_id, "generation": host.generation,
+                "node": host.node, "gpus": host.gpus, "cpus": host.cpus,
+                "memory_mb": host.memory_mb, "disk_mb": host.disk_mb,
+            }]}, f)
+        fd = os.open(self.token, os.O_CREAT | os.O_WRONLY | os.O_TRUNC, 0o600)
+        with os.fdopen(fd, "w") as f:
+            f.write(f"{os.urandom(16).hex()}\n")
+        self.env = dict(os.environ, **host_env)
+        self.env.pop("KEEPALIVE_S", None)
+        self.pairs = [f"--env={k}={v}" for k, v in sorted(trainer_env(
+            SERVED_NAME, root, 1, 1, "1x1").items())]
+        self.procs = []
+        self.url = ""
+
+    def serve(self, announced=True, **env):
+        """Start ``serve`` with ``env`` over its environment; returns
+        (process, seconds to its announce) or, unless ``announced``,
+        (process, None) at once."""
+        with contextlib.suppress(FileNotFoundError):
+            os.unlink(self.announce)
+        t0 = time.monotonic()
+        log_file = open(os.path.join(self.root, f"serve{len(self.procs)}.log"),
+                        "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dcos_commons_tpu_torch", "serve",
+             os.path.join(FRAMEWORKS, "svc.yml"), "--topology",
+             self.topology, "--port", "0", "--state-dir", self.state,
+             "--sandbox-root", self.sandbox, "--announce-file",
+             self.announce, "--auth-token-file", self.token, *self.pairs],
+            cwd=ROOT, env=dict(self.env, **env), start_new_session=True,
+            stdin=subprocess.DEVNULL, stdout=log_file, stderr=log_file)
+        log_file.close()
+        self.procs.append(proc)
+        if not announced:
+            return proc, None
+        end = time.monotonic() + SERVED_WAIT_S
+        while not os.path.exists(self.announce):
+            if proc.poll() is not None or time.monotonic() > end:
+                raise AssertionError(f"21: serve exited {proc.poll()} before "
+                                     f"its announce: {self.log()}")
+            time.sleep(0.1)
+        with open(self.announce) as f:
+            self.url = f.read().strip()
+        return proc, time.monotonic() - t0
+
+    def log(self):
+        out = []
+        for n in range(len(self.procs)):
+            with open(os.path.join(self.root, f"serve{n}.log")) as f:
+                out.append(f"serve{n}.log: {f.read()[-3000:]}")
+        return "\n".join(out)
+
+    def cli(self, *argv, token=True):
+        """``python -m dcos_commons_tpu_torch cli`` against the announced
+        API: (exit code, its JSON or text output, its errors)."""
+        auth = ["--auth-token-file", self.token] if token else []
+        proc = subprocess.run(
+            [sys.executable, "-m", "dcos_commons_tpu_torch", "cli", "--url",
+             self.url, *auth, *argv], cwd=ROOT, env=self.env,
+            capture_output=True, text=True, timeout=120)
+        try:
+            out = json.loads(proc.stdout)
+        except json.JSONDecodeError:
+            out = proc.stdout.strip()
+        return proc.returncode, out, proc.stderr.strip()
+
+    def ask(self, *argv):
+        rc, out, err = self.cli(*argv)
+        if rc != 0:
+            raise AssertionError(f"21: cli {' '.join(argv)} exited {rc}: "
+                                 f"{err}")
+        return out
+
+    def until(self, label, proc, done, deadline_s=SERVED_WAIT_S):
+        """Polls ``done()`` until it is truthy; the phase fails at the
+        deadline or when ``serve`` exits."""
+        end = time.monotonic() + deadline_s
+        while True:
+            got = done()
+            if got:
+                return got
+            if proc.poll() is not None or time.monotonic() > end:
+                raise AssertionError(f"21({label}): not done after "
+                                     f"{deadline_s} s, serve "
+                                     f"{proc.poll()}: {self.log()}")
+            time.sleep(0.5)
+
+    def plan_status(self, verb):
+        return self.ask(*verb)["status"]
+
+    def sandbox_of(self, name):
+        return os.path.join(self.sandbox, name)
+
+    def record(self, info, leaf):
+        """A supervisor record of one incarnation (``task.json`` read as
+        ``task.json.done`` once its fate was delivered)."""
+        base = os.path.join(self.sandbox_of(info.name), ".super",
+                            info.task_id, leaf)
+        if leaf == "task.json" and not os.path.exists(base):
+            base += ".done"
+        return base
+
+    def lines(self, name, prefix):
+        try:
+            with open(os.path.join(self.sandbox_of(name), "stdout"),
+                      "rb") as f:
+                text = f.read().decode("utf-8", "replace")
+        except OSError:
+            return []
+        return [line for line in text.splitlines() if line.startswith(prefix)]
+
+    def tasks(self):
+        """The pod's TaskInfos as the API serves them (``pod info``)."""
+        from dcos_commons_tpu_torch.common import TaskInfo
+
+        return {d["name"]: TaskInfo.from_dict(d)
+                for d in self.ask("pod", "info", "trainer-0")}
+
+    def stored(self):
+        """(``pod status``, ``debug taskStatuses``): what the API says of
+        each task, by name."""
+        pod = {t["name"]: (t["status"], t["id"])
+               for t in self.ask("pod", "status", "trainer-0")["tasks"]}
+        statuses = {s["name"]: (s["state"], s["task_id"])
+                    for s in self.ask("debug", "taskStatuses")}
+        return pod, statuses
+
+    def card_reservations(self):
+        return sorted((r["task_name"], tuple(r["chip_ids"]))
+                      for r in self.ask("debug", "reservations")
+                      if r["chip_ids"])
+
+    def kill_all(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=30)
+        for pid in sandbox_pids(self.sandbox):
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+
+
+def phase_served(smi, watchdog):
+    """21: the scheduler process through its entry points: ``serve``
+    deploys the svc.yml trainer (one card, 1x1, 2 steps, the worker at
+    the flagship width and depth) and the operator drives it with the
+    CLI; (b) the sidecar through the HTTP verb; (c) ``serve`` stopped
+    and started again over its state directory, the worker running on;
+    (d) the uninstall.  Returns the K1-K4 launches of the worker."""
+    root = os.path.join(ROOT, "build", "smoke", SERVED_NAME)
+    shutil.rmtree(root, ignore_errors=True)
+    host_env = agent_host_env(root)
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    run = ServedTrainer(root, machine_host(), host_env)
+    watchdog.cleanups.append(run.kill_all)
+    try:
+        launches = served(run, smi)
+    finally:
+        watchdog.cleanups.remove(run.kill_all)
+        run.kill_all()
+    torch.cuda.empty_cache()
+    free_after = torch.cuda.mem_get_info()[0]
+    if free_after < free_before - GIB:
+        raise AssertionError(f"21(d): the card's free memory "
+                             f"{free_before / GIB:.2f} GiB before the phase, "
+                             f"{free_after / GIB:.2f} GiB after it")
+    log(f"21(d) the card's free memory {free_before / GIB:.2f} GiB before "
+        f"the phase, {free_after / GIB:.2f} GiB after the uninstall")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def served(run, smi):
+    """Phase 21's steps (a)-(d) on ``run``; returns the K1-K4 launches
+    of the deployed worker."""
+    # (a) serve, announce, deploy through the CLI
+    t0 = time.monotonic()
+    first, announce_s = run.serve()
+    log(f"21(a) serve announced {run.url} {announce_s:.1f} s after its "
+        "start")
+    rc, _, err = run.cli("plan", "list", token=False)
+    if rc != 1 or "HTTP 401" not in err:
+        raise AssertionError(f"21(a): a request without the token exited "
+                             f"{rc}: {err}")
+    run.until("a", first, lambda: run.plan_status(
+        ("plan", "status", "deploy")) == "COMPLETE")
+    deploy_s = time.monotonic() - t0
+    info = run.tasks()["trainer-0-worker"]
+    record = run.record(info, "task.json")
+    with open(record) as f:
+        native = json.load(f)["native"]
+    with open(run.record(info, "child.pid")) as f:
+        child = int(f.read())
+    log(f"21(a) `plan status deploy` COMPLETE {deploy_s:.1f} s after the "
+        f"start: {info.name} ({info.task_id}) on {info.agent_id}, native "
+        f"{native}, session {child}, CUDA_VISIBLE_DEVICES="
+        f"{info.env['CUDA_VISIBLE_DEVICES']}")
+    line = run.until("a", first, lambda: run.lines(info.name,
+                                                   "kernel launches "))[-1]
+    steps = run.lines(info.name, "step ")
+    launches = check_card("21(a)", info, line, child)
+    want = {n: 2 * v for n, v in launches_per_step(
+        int(PLACED_WIDTH["N_LAYERS"]), 0).items()}
+    if launches != [want] or len(steps) != PLACED_STEPS or not native:
+        raise AssertionError(f"21(a): steps {steps}, K1-K4 launches "
+                             f"{launches}, want [{want}], native {native}")
+    log(f"21(a) the worker logged {steps} and K1-K4 launches {launches} "
+        f"{time.monotonic() - t0:.1f} s after serve started ({smi})")
+    pod, statuses = run.stored()
+    alive = bool(session_pids(child))
+    if (pod.get(info.name) != ("TASK_RUNNING", info.task_id)
+            or statuses.get(info.name) != ("TASK_RUNNING", info.task_id)
+            or not alive):
+        raise AssertionError(f"21(a): pod status {pod}, stored statuses "
+                             f"{statuses}, the worker's session alive "
+                             f"{alive}")
+    reserved = run.card_reservations()
+    log(f"21(a) `pod status` and `debug taskStatuses` say {info.name} "
+        f"TASK_RUNNING as its supervisor's session {child} is; card "
+        f"reservations {reserved}")
+
+    # (b) the collectives sidecar through the HTTP verb
+    t0 = time.monotonic()
+    run.ask("plan", "start", "collectives")
+    run.until("b", first, lambda: run.plan_status(
+        ("plan", "status", "collectives")) == "COMPLETE")
+    bench = run.tasks()["trainer-0-collective-bench"]
+    pod, statuses = run.stored()
+    with open(run.record(bench, "exit_status")) as f:
+        bench_exit = f.read().strip()
+    report = run.lines(bench.name, "{")
+    if (statuses.get(bench.name) != ("TASK_FINISHED", bench.task_id)
+            or bench_exit != "0" or not report
+            or bench.env["CUDA_VISIBLE_DEVICES"]
+            != info.env["CUDA_VISIBLE_DEVICES"]):
+        raise AssertionError(f"21(b): {bench.name} {statuses.get(bench.name)}"
+                             f", exit {bench_exit}, report {report}, cards "
+                             f"{bench.env['CUDA_VISIBLE_DEVICES']}")
+    log(f"21(b) `plan start collectives`: {bench.name} FINISHED (exit 0) "
+        f"on cards {bench.env['CUDA_VISIBLE_DEVICES']} beside the worker, "
+        f"{json.loads(report[-1])['devices']} device(s), collectives "
+        f"COMPLETE {time.monotonic() - t0:.1f} s after the verb")
+
+    # (c) SIGTERM serve; the worker runs on; serve again over the state
+    first.send_signal(signal.SIGTERM)
+    rc = first.wait(timeout=60)
+    alive = bool(session_pids(child))
+    if rc != 0 or not alive:
+        raise AssertionError(f"21(c): serve exited {rc} on SIGTERM, the "
+                             f"worker alive {alive}: {run.log()}")
+    t0 = time.monotonic()
+    again, announce_s = run.serve()
+    with open(os.path.join(run.state, "scheduler.lock")) as f:
+        holder = int(f.read())
+    # a completed deployment's plan is served as "update" after a
+    # restart, by both packages' runners: ``update status`` reads it
+    run.until("c", again, lambda: run.plan_status(
+        ("update", "status")) == "COMPLETE")
+    reconcile_s = time.monotonic() - t0
+    plans = run.ask("plan", "list")
+    now = run.tasks()["trainer-0-worker"]
+    pod, statuses = run.stored()
+    incarnations = os.listdir(os.path.join(run.sandbox_of(info.name),
+                                           ".super"))
+    if (holder != again.pid or now.task_id != info.task_id
+            or statuses.get(info.name) != ("TASK_RUNNING", info.task_id)
+            or incarnations != [info.task_id]
+            or run.card_reservations() != reserved
+            or not session_pids(child)):
+        raise AssertionError(f"21(c): the lock held by {holder} (serve "
+                             f"{again.pid}), the worker {now.task_id} (was "
+                             f"{info.task_id}), stored {statuses}, "
+                             f"incarnations {incarnations}, reservations "
+                             f"{run.card_reservations()}: {run.log()}")
+    log(f"21(c) SIGTERM: serve exited 0, the worker's session {child} ran "
+        f"on; serve again took the instance lock (pid {holder}), announced "
+        f"in {announce_s:.1f} s and reconciled in {reconcile_s:.1f} s: "
+        f"plans {plans}, the deployment COMPLETE with the same task "
+        f"{info.task_id}, no new launch or reservation")
+
+    # (d) uninstall: SIGTERM, serve again with SDK_UNINSTALL=1
+    again.send_signal(signal.SIGTERM)
+    rc = again.wait(timeout=60)
+    if rc != 0:
+        raise AssertionError(f"21(d): serve exited {rc}: {run.log()}")
+    t0 = time.monotonic()
+    uninstall, _ = run.serve(announced=False, SDK_UNINSTALL="1")
+    rc = uninstall.wait(timeout=SERVED_WAIT_S)
+    uninstall_s = time.monotonic() - t0
+    with open(run.record(info, "exit_status")) as f:
+        fate = int(f.read())
+    end = time.monotonic() + 30
+    while sandbox_pids(run.sandbox) and time.monotonic() < end:
+        time.sleep(0.2)
+    left = sandbox_pids(run.sandbox)
+    from dcos_commons_tpu_torch.storage import FileWalPersister
+
+    persister = FileWalPersister(run.state)
+    try:
+        tree = persister.get_children_or_empty("/")
+    finally:
+        persister.close()
+    # the uninstall plan kills with no grace (as the reference's): the
+    # supervisor is sent SIGTERM and the task's group SIGKILL at once
+    if (rc != 0 or tree or left
+            or fate not in (128 + signal.SIGTERM, 128 + signal.SIGKILL)):
+        raise AssertionError(f"21(d): serve exited {rc}, the state tree "
+                             f"{tree}, the worker's exit {fate}, processes "
+                             f"left {left}: {run.log()}")
+    log(f"21(d) SDK_UNINSTALL=1 serve exited 0 {uninstall_s:.1f} s after "
+        f"its start: the worker killed (exit {fate}), its card unreserved, "
+        f"the state tree empty, no process of the sandbox root left")
     return launches[0]
 
 
@@ -4046,12 +4406,17 @@ def main():
     watchdog.phase("20 the scheduler deploys the trainer through the "
                    "local agent", 300)
     scheduled_launches = phase_scheduled(smi, watchdog)
+    # phase 21: the scheduler process through its entry points (serve,
+    # the CLI): deploy, the sidecar, a restart, the uninstall (the
+    # launches are the worker's, read from its sandbox)
+    watchdog.phase("21 the scheduler process deploys the trainer", 480)
+    served_launches = phase_served(smi, watchdog)
     launches = {n: slot_launches[n] + paged_launches[n] + train_launches[n]
                 + moe_launches[n] + moe_train_launches[n]
                 + gang_one_launches[n] + gang_two_launches[n]
                 + serve_gang_launches[n] + long_counts[n]
                 + placed_launches[n] + planned_launches[n]
-                + scheduled_launches[n] for n in logs}
+                + scheduled_launches[n] + served_launches[n] for n in logs}
     for n in logs:
         train_shapes[n] |= (moe_train_shapes[n] | gang_two_shapes[n]
                             | long_shapes[n])

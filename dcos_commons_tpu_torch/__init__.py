@@ -12,8 +12,18 @@ keeps as its own copies.
 Entry points that create tensors take ``device=``; left out, it is
 ``cuda``, and a host without CUDA raises instead of running on the CPU
 (``device.resolve_device``).
+
+The control plane (the scheduler process, its API and CLI) imports no
+``torch``: ``resolve_device`` is loaded on first use, so ``python -m
+dcos_commons_tpu_torch serve`` and ``cli`` start without it.
 """
 
-from dcos_commons_tpu_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from dcos_commons_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

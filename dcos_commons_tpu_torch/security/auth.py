@@ -1,9 +1,8 @@
 """Control-plane authentication: shared bearer token + TLS transport.
 
-Port of ``dcos_commons_tpu/security/auth.py``, line for line but
-``certs_main`` (``python -m dcos_commons_tpu certs``), which needs the
-certificate authority of ``security/tls.py`` that the port does not
-have yet.
+Port of ``dcos_commons_tpu/security/auth.py``, line for line but the
+imports: the bearer token, the TLS transport and ``certs_main``
+(``python -m dcos_commons_tpu_torch certs``).
 
 * a **cluster auth token** — one shared secret distributed to every
   control-plane process (operator-managed file, like a service-account
@@ -131,3 +130,50 @@ def wrap_http_server(httpd, tls: Optional[Tuple[str, str]]):
 
 def url_scheme(tls) -> str:
     return "https" if tls else "http"
+
+
+# ---------------------------------------------------------------------------
+# `python -m dcos_commons_tpu_torch certs` — provision CA + server certs
+# ---------------------------------------------------------------------------
+
+
+def certs_main(argv=None) -> int:
+    """Provision control-plane TLS material into a directory:
+
+        python -m dcos_commons_tpu_torch certs --dir ./cp-certs \\
+            --hosts scheduler-host,agent-host-1,agent-host-2
+
+    Writes ca.pem (hand to every client via --tls-ca / TLS_CA_FILE)
+    and per-host <host>.cert.pem / <host>.key.pem (hand to the server
+    bound on that host), plus a fresh auth token in token (0600).
+    """
+    import argparse
+
+    from dcos_commons_tpu_torch.security.tls import CertificateAuthority
+
+    parser = argparse.ArgumentParser(prog="dcos_commons_tpu_torch certs")
+    parser.add_argument("--dir", required=True)
+    parser.add_argument(
+        "--hosts", default="localhost",
+        help="comma-separated hostnames/IPs to issue server certs for",
+    )
+    args = parser.parse_args(argv)
+    os.makedirs(args.dir, exist_ok=True)
+    ca = CertificateAuthority.create("dcos-commons-tpu control plane CA")
+    with open(os.path.join(args.dir, "ca.pem"), "wb") as f:
+        f.write(ca.ca_cert_pem)
+    for host in [h.strip() for h in args.hosts.split(",") if h.strip()]:
+        cert, key = ca.issue(host, sans=[host, "localhost", "127.0.0.1"])
+        cert_path = os.path.join(args.dir, f"{host}.cert.pem")
+        key_path = os.path.join(args.dir, f"{host}.key.pem")
+        with open(cert_path, "wb") as f:
+            f.write(cert)
+        fd = os.open(key_path, os.O_CREAT | os.O_WRONLY | os.O_TRUNC, 0o600)
+        with os.fdopen(fd, "wb") as f:
+            f.write(key)
+    token_path = os.path.join(args.dir, "token")
+    fd = os.open(token_path, os.O_CREAT | os.O_WRONLY | os.O_TRUNC, 0o600)
+    with os.fdopen(fd, "w") as f:
+        f.write(generate_token() + "\n")
+    print(f"wrote CA, server certs, and auth token under {args.dir}")
+    return 0

@@ -1,10 +1,19 @@
-"""Test harness: the scripted agent the scheduler runs against with
-no processes, and the poll loop for tests that drive a scheduler
-against a real agent.
+"""Simulation test harness: full scheduler stack, no processes, no fleet.
 
-Port of ``dcos_commons_tpu/testing/__init__.py`` but the simulation
-runner and its ticks (``testing/runner.py``, ``testing/ticks.py``),
-which the port does not have yet.
+Rebuild of the reference's `sdk/testing/` simulation harness
+(reference: sdk/testing/.../ServiceTestRunner.java:38,
+SimulationTick.java:6, Expect.java:47-631): boot the *entire* scheduler
+(builder -> config update -> plans -> offer evaluation -> launch WAL)
+against a MemPersister and a scripted FakeAgent, then drive it with
+tick sequences -- `Send*` mutations followed by one scheduler cycle,
+`Expect*` assertions over the observable state.  Scheduler restarts
+are simulated by rebuilding the runner over the same persister, just
+as the reference rebuilds ServiceTestRunner over one MemPersister
+(ServiceTest.java:57-77).
+
+Port of ``dcos_commons_tpu/testing/__init__.py``, line for line but the
+imports: the scripted ``FakeAgent``, ``drive_until``, the simulation
+runner and its ticks over a default fleet of ``GpuHost``s.
 """
 
 from dcos_commons_tpu_torch.testing.fake_agent import FakeAgent
@@ -25,6 +34,88 @@ def drive_until(scheduler, predicate, timeout_s: float = 30.0,
             return True
         _time.sleep(interval_s)
     return False
+from dcos_commons_tpu_torch.testing.runner import (
+    ServiceTestRunner,
+    SimulationWorld,
+    cosmos_render,
+)
+from dcos_commons_tpu_torch.testing.ticks import (
+    AddHost,
+    AdvanceCycles,
+    Expect,
+    ExpectAllPlansComplete,
+    ExpectDeclined,
+    ExpectDeploymentComplete,
+    ExpectDistinctHosts,
+    ExpectLaunchedTasks,
+    ExpectNoLaunches,
+    ExpectPlanStatus,
+    ExpectRecoveryStep,
+    ExpectReservationCount,
+    ExpectSameHost,
+    ExpectStepStatus,
+    ExpectTaskEnv,
+    ExpectTaskKilled,
+    ExpectTaskNotKilled,
+    ExpectTaskStateStored,
+    DrainHost,
+    HostUp,
+    MarkHostDown,
+    MarkHostUp,
+    PreemptHost,
+    PlanContinue,
+    PlanForceComplete,
+    PlanInterrupt,
+    PlanRestart,
+    PlanStart,
+    RemoveHost,
+    Send,
+    SendStatus,
+    SendTaskFailed,
+    SendTaskFinished,
+    SendTaskRunning,
+    SimulationTick,
+)
 
-
-__all__ = ["FakeAgent", "drive_until"]
+__all__ = [
+    "FakeAgent",
+    "drive_until",
+    "ServiceTestRunner",
+    "cosmos_render",
+    "SimulationWorld",
+    "SimulationTick",
+    "Send",
+    "Expect",
+    "SendStatus",
+    "SendTaskRunning",
+    "SendTaskFinished",
+    "SendTaskFailed",
+    "AddHost",
+    "RemoveHost",
+    "DrainHost",
+    "HostUp",
+    "MarkHostDown",
+    "MarkHostUp",
+    "PreemptHost",
+    "AdvanceCycles",
+    "PlanInterrupt",
+    "PlanContinue",
+    "PlanRestart",
+    "PlanStart",
+    "PlanForceComplete",
+    "ExpectLaunchedTasks",
+    "ExpectNoLaunches",
+    "ExpectTaskKilled",
+    "ExpectTaskNotKilled",
+    "ExpectPlanStatus",
+    "ExpectStepStatus",
+    "ExpectDeploymentComplete",
+    "ExpectAllPlansComplete",
+    "ExpectRecoveryStep",
+    "ExpectTaskEnv",
+    "ExpectTaskStateStored",
+    "ExpectReservationCount",
+    "ExpectDistinctHosts",
+    "ExpectSameHost",
+    "ExpectDeclined",
+]

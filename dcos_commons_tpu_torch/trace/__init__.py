@@ -1,8 +1,10 @@
 """Tracing: worker-side step telemetry (``steplog``) and the control
 plane's spans and flight recorder (``span``, ``recorder``; ports of the
-JAX package's, which the offer evaluator records into).  The JAX
-package's exporters (``trace/export.py``) are not ported."""
+JAX package's, which the offer evaluator records into) and their
+exporters (``export``: plain text and Chrome trace JSON, served at
+``GET /v1/debug/trace``)."""
 
+from dcos_commons_tpu_torch.trace.export import chrome_json, to_chrome, to_text
 from dcos_commons_tpu_torch.trace.recorder import (
     NULL_TRACER,
     LaunchRef,
@@ -25,5 +27,8 @@ __all__ = [
     "Span",
     "StepLog",
     "TraceRecorder",
+    "chrome_json",
     "read_steplog",
+    "to_chrome",
+    "to_text",
 ]

@@ -13,7 +13,9 @@ gang skew directly visible (host 3's ``blocked_s`` IS the skew the
 other hosts imposed on it).
 
 Telemetry must never take a worker down: write failures are counted
-(``errors``) and otherwise ignored.
+(``errors``) and otherwise ignored.  ``torch`` is imported only when a
+result is marked: the scheduler process reads steplogs and never
+imports it.
 
 What differs from the JAX module is readiness.  A JAX result is a
 future: blocking on step N-k's result waits for step N-k alone.  A
@@ -32,8 +34,6 @@ import json
 import os
 import time
 from typing import Any, Callable, List, Optional, Tuple
-
-import torch
 
 STEPLOG_NAME = "steplog.jsonl"
 
@@ -87,6 +87,8 @@ class _Marked:
 def _default_mark(result: Any) -> Any:
     """At dispatch: start a CUDA tensor's copy to the host and record an
     event behind it.  Anything else is returned as it is."""
+    import torch
+
     if not (isinstance(result, torch.Tensor) and result.is_cuda):
         return result
     host = torch.empty(result.shape, dtype=result.dtype, pin_memory=True)

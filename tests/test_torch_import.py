@@ -2,7 +2,9 @@
 chip_smoke.py, imports jax or anything of the JAX package
 (dcos_commons_tpu), nor triton (every kernel is CUDA C++ built with
 nvcc), and its entry points run on the card unless the caller asks for
-the CPU."""
+the CPU.  The paths that need a port module not written yet (the remote
+agent and its daemon, the state server, packaging, multi-service)
+raise that module's ``ModuleNotFoundError`` and run no stand-in."""
 
 import ast
 import os
@@ -154,6 +156,24 @@ def test_every_port_module_imports_without_jax():
         "dcos_commons_tpu_torch.scheduler.config",
         "dcos_commons_tpu_torch.scheduler.scheduler",
         "dcos_commons_tpu_torch.native",
+        "dcos_commons_tpu_torch.__main__",
+        "dcos_commons_tpu_torch.security",
+        "dcos_commons_tpu_torch.security.secrets",
+        "dcos_commons_tpu_torch.security.tls",
+        "dcos_commons_tpu_torch.uninstall",
+        "dcos_commons_tpu_torch.uninstall.scheduler",
+        "dcos_commons_tpu_torch.scheduler.builder",
+        "dcos_commons_tpu_torch.testing.runner",
+        "dcos_commons_tpu_torch.testing.ticks",
+        "dcos_commons_tpu_torch.trace.export",
+        "dcos_commons_tpu_torch.http",
+        "dcos_commons_tpu_torch.http.api",
+        "dcos_commons_tpu_torch.http.server",
+        "dcos_commons_tpu_torch.cli",
+        "dcos_commons_tpu_torch.cli.__main__",
+        "dcos_commons_tpu_torch.cli.client",
+        "dcos_commons_tpu_torch.cli.commands",
+        "dcos_commons_tpu_torch.runtime.runner",
     } <= set(mods)
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT, REPO, *mods],
@@ -297,3 +317,114 @@ def test_meta_device_builds_shapes_without_values(n_experts):
             assert {k: (v.shape, v.dtype, v.device.type)
                     for k, v in cache.items()} == {
                 k: (v.shape, v.dtype, "meta") for k, v in want.items()}
+
+
+_NO_TORCH = r"""
+import importlib, sys
+
+class _NoTorch:
+    def find_spec(self, name, path=None, target=None):
+        if name == "torch" or name.startswith("torch."):
+            raise ImportError("torch is blocked in this process")
+        return None
+
+sys.meta_path.insert(0, _NoTorch())
+sys.path.insert(0, sys.argv[1])
+for mod in sys.argv[2:]:
+    importlib.import_module(mod)
+print("imported", len(sys.argv) - 2)
+"""
+
+# the scheduler process, its API, CLI and agent: control plane only
+CONTROL_PLANE = (
+    "dcos_commons_tpu_torch.__main__", "dcos_commons_tpu_torch.cli",
+    "dcos_commons_tpu_torch.http", "dcos_commons_tpu_torch.runtime.runner",
+    "dcos_commons_tpu_torch.scheduler", "dcos_commons_tpu_torch.uninstall",
+    "dcos_commons_tpu_torch.agent.local", "dcos_commons_tpu_torch.security",
+    "dcos_commons_tpu_torch.testing", "dcos_commons_tpu_torch.trace",
+)
+
+
+def test_control_plane_imports_without_torch():
+    """``serve`` and ``cli`` need no card and no torch: a host without
+    it runs the scheduler process."""
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_TORCH, REPO, *CONTROL_PLANE],
+        capture_output=True, text=True, timeout=120, cwd=REPO,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert f"imported {len(CONTROL_PLANE)}" in out.stdout
+
+
+def _serve_multi_put(tmp_path):
+    """PUT a service through an ``ApiServer`` in multi-service mode; the
+    exception its request handler raised."""
+    import urllib.request
+
+    from dcos_commons_tpu_torch.http import ApiServer
+
+    server = ApiServer(multi=object())
+    raised = []
+    server._server.handle_error = lambda request, address: raised.append(
+        sys.exc_info()[1])
+    server.start()
+    try:
+        req = urllib.request.Request(server.url + "/v1/multi/svc",
+                                     method="PUT", data=b"name: svc\n")
+        with pytest.raises(Exception):
+            urllib.request.urlopen(req, timeout=30)
+    finally:
+        server.stop()
+    raise raised[0]
+
+
+def _runner_entry(entry, tmp_path):
+    from dcos_commons_tpu_torch.offer.inventory import GpuHost
+    from dcos_commons_tpu_torch.runtime import runner
+    from dcos_commons_tpu_torch.scheduler.config import SchedulerConfig
+    from dcos_commons_tpu_torch.specification.yaml_spec import from_yaml
+
+    spec = from_yaml("name: s\npods:\n  p:\n    count: 1\n    tasks:\n"
+                     "      t:\n        goal: RUNNING\n        cmd: x\n"
+                     "        cpus: 0.1\n        memory: 32\n")
+    config = SchedulerConfig(state_dir=str(tmp_path / "state"))
+    if entry == "multi":
+        return runner.MultiFrameworkRunner([spec], config).build()
+    if entry == "agent_url":
+        return runner.FrameworkRunner(
+            spec, config, topology_hosts=[GpuHost(host_id="h0")],
+            agent_urls={"h0": "http://127.0.0.1:1"})._build_infra()
+    config.state_url = "http://127.0.0.1:1"
+    return runner.make_instance_lock(config, "scheduler-s")
+
+
+def _main(command, tmp_path):
+    from dcos_commons_tpu_torch.__main__ import main
+
+    return main([command, "--help"])
+
+
+UNPORTED = {
+    "main agent": (lambda t: _main("agent", t),
+                   "dcos_commons_tpu_torch.agent.daemon"),
+    "main state-server": (lambda t: _main("state-server", t),
+                          "dcos_commons_tpu_torch.storage.remote"),
+    "main package": (lambda t: _main("package", t),
+                     "dcos_commons_tpu_torch.tools.packaging"),
+    "runner --multi": (lambda t: _runner_entry("multi", t),
+                       "dcos_commons_tpu_torch.multi"),
+    "runner agent_url": (lambda t: _runner_entry("agent_url", t),
+                         "dcos_commons_tpu_torch.agent.remote"),
+    "runner state_url": (lambda t: _runner_entry("state_url", t),
+                         "dcos_commons_tpu_torch.storage.remote"),
+    "server multi dispatch": (_serve_multi_put,
+                              "dcos_commons_tpu_torch.multi"),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(UNPORTED))
+def test_unported_entry_raises_its_missing_module(entry, tmp_path):
+    call, missing = UNPORTED[entry]
+    with pytest.raises(ModuleNotFoundError) as err:
+        call(tmp_path)
+    assert err.value.name == missing
