@@ -214,6 +214,38 @@ CUDA card).  Phases, each fatal on failure:
    Seconds to the announce, to deploy COMPLETE, to the worker's steps,
    to the restart's reconciliation and to the uninstall's exit are
    printed.
+22. The distributed control plane, under ``build/smoke/distributed/``,
+   every process a ``python -m dcos_commons_tpu_torch`` entry point in a
+   session of its own: ``state-server`` (the primary) and ``state-server
+   --standby-of`` it, an ``agent`` daemon for this machine's
+   ``GpuHost`` on a fixed free port with a bearer token and the agent
+   host's environment (``agent_host_env``: the flagship width at
+   ``PLACED_DEPTH`` layers), and a topology whose one host has the
+   daemon's ``agent_url``.  (a) ``serve`` over phase 21's trainer (one
+   card, 1x1, 2 steps) with ``--state-url primary,standby`` reaches
+   deploy COMPLETE; the worker logs its steps in the daemon's sandbox on
+   its card by UUID with K1-K4 ``launches_per_step(PLACED_DEPTH, 0)``
+   twice; ``GET /v1/agent/steplog`` on the daemon returns its step
+   records; ``serve`` has no child process and no sandbox root of its
+   own.  (b) The primary SIGKILLed, ``state-server --promote`` the
+   standby (``--repl-status``: primary, epoch >= 2); ``plan start
+   collectives`` through the same ``serve`` completes, the worker keeps
+   its task id.  (c) ``serve`` SIGTERMed, then the daemon SIGKILLed; a
+   new daemon over the same workdir and port and ``serve`` again over
+   the same ``--state-url`` reconcile with no relaunch: the same task
+   id, one incarnation, the supervisor's session alive, the card
+   reservation unchanged.  (d) ``SDK_UNINSTALL=1 serve`` exits 0, the
+   worker killed, the promoted server's tree empty, no process of the
+   daemon's sandbox root left.  (e) ``serve --multi --state-url
+   standby`` against the same daemon; ``package build`` of the port's
+   frameworks directory; ``package install --options`` asking 4 cards
+   a host on a 1x1 topology is refused (exit 1; a PUT of the same
+   payload gets HTTP 422 with admission's findings) and stores
+   nothing; with one card it deploys the trainer through the daemon
+   (K1-K4 as in (a)); ``DELETE /v1/multi/<name>`` uninstalls it while
+   ``serve --multi`` runs on.  The card's free memory after the phase
+   is within 1 GiB of before it; every process is reaped in a
+   ``finally``.  Seconds to each milestone are printed.
 8. Run last: every kernel against its plain version at each shape the
    train runs of phases 7, 11, 12 and 15 launched it at (K1 [24576,
    16384 or 4096, 2048] bf16, K2-K4 [192, 128 or 32, 2048, 2048, 128]
@@ -249,7 +281,8 @@ The line before the last is a JSON object ``{"kernels": [...]}``; each
 entry's ``launches`` sums the main-path runs, dense and MoE (phases 3,
 4, 7, 9, 11 and 12, both ranks of 12(b), of 13(b) and 14 and of 15,
 the placed worker of 18(a), the planned one of 19(a), the
-scheduled one of 20(a) and the served one of 21(a)),
+scheduled one of 20(a), the served one of 21(a) and the two
+deployed through the daemon in 22(a) and 22(e)),
 and its ``design`` says how it computes (K1: a warp a
 row with 16-byte vector loads, launched through ctypes; K2-K4: wgmma
 with TMA-fed tiles in bf16, f32 FMA in f32).  The last line is ``{"ok":
@@ -257,6 +290,7 @@ true, "device": {...}}``.  Without CUDA, or without the port beside it,
 the script fails before printing either.
 """
 
+import base64
 import contextlib
 import json
 import os
@@ -267,6 +301,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -4105,6 +4140,523 @@ def served(run, smi):
     return launches[0]
 
 
+# -- phase 22: the distributed control plane ----------------------------------
+
+DISTRIBUTED_WAIT_S = 240  # each wait of phase 22 on a process or the worker
+DISTRIBUTED_NAME = "distributed"
+MULTI_NAME = "torch-trainer"
+PKG = "dcos_commons_tpu_torch"
+
+
+def children(pid):
+    """The live processes whose parent is ``pid``."""
+    out = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                fields = f.read().rsplit(") ", 1)[1].split()
+        except (OSError, IndexError):
+            continue
+        if fields[0] != "Z" and int(fields[1]) == pid:
+            out.append(int(name))
+    return out
+
+
+class DistributedTrainer:
+    """Phase 22's processes, each a ``python -m dcos_commons_tpu_torch``
+    entry point in a session of its own, its output in ``<name>.log``:
+    a primary state server and its hot standby, an agent daemon for this
+    machine's ``GpuHost`` on a fixed port, ``serve`` (and ``serve
+    --multi``) over a topology file that reaches the daemon by its
+    ``agent_url``, and the CLI.  The daemon's environment is the agent
+    host's (``agent_host_env``), which every task it launches
+    inherits."""
+
+    def __init__(self, root, host, host_env):
+        self.root = root
+        self.host = host
+        self.workdir = os.path.join(root, "agent")
+        self.token = os.path.join(root, "token")
+        self.topology = os.path.join(root, "cluster.yml")
+        self.local_sandboxes = os.path.join(root, "serve-sandboxes")
+        fd = os.open(self.token, os.O_CREAT | os.O_WRONLY | os.O_TRUNC, 0o600)
+        with os.fdopen(fd, "w") as f:
+            f.write(f"{os.urandom(16).hex()}\n")
+        with open(self.token) as f:
+            self.bearer = f.read().strip()
+        self.env = dict(os.environ, **host_env)
+        for name in ("KEEPALIVE_S", "AUTH_TOKEN", "AUTH_TOKEN_FILE"):
+            self.env.pop(name, None)
+        self.port = free_port()
+        self.pairs = [f"--env={k}={v}" for k, v in sorted(trainer_env(
+            DISTRIBUTED_NAME, root, 1, 1, "1x1").items())]
+        self.procs = {}
+        self.url = ""
+
+    def start(self, name, *argv, env=None):
+        log_file = open(os.path.join(self.root, f"{name}.log"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", PKG, *argv], cwd=ROOT,
+            env=dict(self.env, **(env or {})), start_new_session=True,
+            stdin=subprocess.DEVNULL, stdout=log_file, stderr=log_file)
+        log_file.close()
+        self.procs[name] = proc
+        return proc
+
+    def log(self, *names):
+        out = []
+        for name in names or self.procs:
+            with open(os.path.join(self.root, f"{name}.log"),
+                      errors="replace") as f:
+                out.append(f"{name}.log: {f.read()[-3000:]}")
+        return "\n".join(out)
+
+    def announced(self, name):
+        """The URL ``name`` wrote to its announce file."""
+        path = os.path.join(self.root, f"{name}.url")
+        proc = self.procs[name]
+        end = time.monotonic() + DISTRIBUTED_WAIT_S
+        while True:
+            with contextlib.suppress(FileNotFoundError):
+                with open(path) as f:
+                    text = f.read().strip()
+                if text:
+                    return text.split()[-1]
+            if proc.poll() is not None or time.monotonic() > end:
+                raise AssertionError(f"22: {name} exited {proc.poll()} "
+                                     f"before its announce: "
+                                     f"{self.log(name)}")
+            time.sleep(0.05)
+
+    def state_server(self, name, *extra):
+        self.start(name, "state-server", "--data-dir",
+                   os.path.join(self.root, name), "--announce-file",
+                   os.path.join(self.root, f"{name}.url"), *extra)
+        return self.announced(name)
+
+    def daemon(self, name, token=True):
+        """An agent daemon of this machine's host over the one workdir
+        and port; its URL."""
+        self.start(name, "agent", "--host-id", self.host.host_id,
+                   "--port", str(self.port), "--workdir", self.workdir,
+                   "--announce-file", os.path.join(self.root, f"{name}.url"),
+                   *(("--auth-token-file", self.token) if token else ()))
+        return self.announced(name)
+
+    def write_topology(self, agent_url):
+        host = self.host
+        with open(self.topology, "w") as f:
+            json.dump({"hosts": [{
+                "host_id": host.host_id, "hostname": host.hostname,
+                "slice_id": host.slice_id, "generation": host.generation,
+                "node": host.node, "gpus": host.gpus, "cpus": host.cpus,
+                "memory_mb": host.memory_mb, "disk_mb": host.disk_mb,
+                "agent_url": agent_url,
+            }]}, f)
+
+    def serve(self, name, *argv, announced=True, token=True, env=None):
+        proc = self.start(
+            name, "serve", *argv, "--topology", self.topology, "--port", "0",
+            "--state-dir", os.path.join(self.root, f"{name}-state"),
+            "--sandbox-root", self.local_sandboxes, "--announce-file",
+            os.path.join(self.root, f"{name}.url"),
+            *(("--auth-token-file", self.token) if token else ()), env=env)
+        if announced:
+            self.url = self.announced(name)
+        return proc
+
+    def run(self, label, *argv, ok=True):
+        """A ``python -m dcos_commons_tpu_torch`` command to its end:
+        (exit code, its JSON or text output, its errors)."""
+        proc = subprocess.run(
+            [sys.executable, "-m", PKG, *argv], cwd=ROOT, env=self.env,
+            capture_output=True, text=True, timeout=120)
+        if ok and proc.returncode != 0:
+            raise AssertionError(f"22({label}): {' '.join(argv)} exited "
+                                 f"{proc.returncode}: {proc.stderr}")
+        try:
+            out = json.loads(proc.stdout)
+        except json.JSONDecodeError:
+            out = proc.stdout.strip()
+        return proc.returncode, out, proc.stderr.strip()
+
+    def ask(self, *argv, url=None):
+        return self.run("cli", "cli", "--url", url or self.url,
+                        "--auth-token-file", self.token, *argv)[1]
+
+    def http(self, url, method="GET", data=None, headers=None):
+        """(status, JSON body) of one request with the bearer token."""
+        req = urllib.request.Request(
+            url, method=method, data=data,
+            headers={"Authorization": f"Bearer {self.bearer}",
+                     **(headers or {})})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def until(self, label, procs, done, deadline_s=DISTRIBUTED_WAIT_S):
+        """Polls ``done()`` until it is truthy; the phase fails at the
+        deadline or when one of ``procs`` exits."""
+        end = time.monotonic() + deadline_s
+        while True:
+            got = done()
+            if got:
+                return got
+            dead = [p.args[3] for p in procs if p.poll() is not None]
+            if dead or time.monotonic() > end:
+                raise AssertionError(f"22({label}): not done after "
+                                     f"{deadline_s} s, exited {dead}: "
+                                     f"{self.log()}")
+            time.sleep(0.5)
+
+    def sandbox_of(self, name):
+        return os.path.join(self.workdir, name)
+
+    def record(self, info, leaf):
+        base = os.path.join(self.sandbox_of(info.name), ".super",
+                            info.task_id, leaf)
+        if leaf == "task.json" and not os.path.exists(base):
+            base += ".done"
+        return base
+
+    def stdout_size(self, name):
+        path = os.path.join(self.sandbox_of(name), "stdout")
+        return os.path.getsize(path) if os.path.exists(path) else 0
+
+    def lines(self, name, prefix, offset=0):
+        try:
+            with open(os.path.join(self.sandbox_of(name), "stdout"),
+                      "rb") as f:
+                f.seek(offset)
+                text = f.read().decode("utf-8", "replace")
+        except OSError:
+            return []
+        return [line for line in text.splitlines() if line.startswith(prefix)]
+
+    def tasks(self, url=None):
+        from dcos_commons_tpu_torch.common import TaskInfo
+
+        return {d["name"]: TaskInfo.from_dict(d)
+                for d in self.ask("pod", "info", "trainer-0", url=url)}
+
+    def card_reservations(self):
+        return sorted((r["task_name"], tuple(r["chip_ids"]))
+                      for r in self.ask("debug", "reservations")
+                      if r["chip_ids"])
+
+    def tree(self, url):
+        """Every path of the state server's tree but its own
+        ``/__cluster__`` namespace."""
+        from dcos_commons_tpu_torch.storage.remote import RemotePersister
+        from dcos_commons_tpu_torch.storage.replication import dump_tree
+
+        return [path for path, _ in dump_tree(RemotePersister(url))
+                if not path.startswith("/__cluster__")]
+
+    def kill_all(self):
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=30)
+        for pid in sandbox_pids(self.workdir):
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+
+
+def phase_distributed(smi, watchdog):
+    """22: the distributed control plane: the svc.yml trainer (one card,
+    1x1, 2 steps, the flagship width at ``PLACED_DEPTH`` layers)
+    deployed by ``serve`` through an agent daemon over replicated
+    state; (b) the primary state server killed and the standby promoted
+    while the deployment runs; (c) the daemon crashed while ``serve`` is
+    stopped; (d) the uninstall; (e) ``serve --multi``, the package flow
+    and admission.  Returns the K1-K4 launches of its two
+    deployments."""
+    root = os.path.join(ROOT, "build", "smoke", DISTRIBUTED_NAME)
+    shutil.rmtree(root, ignore_errors=True)
+    host_env = agent_host_env(root, N_LAYERS=str(PLACED_DEPTH))
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    run = DistributedTrainer(root, machine_host(), host_env)
+    watchdog.cleanups.append(run.kill_all)
+    try:
+        launches = distributed(run, smi)
+    finally:
+        watchdog.cleanups.remove(run.kill_all)
+        run.kill_all()
+    torch.cuda.empty_cache()
+    free_after = torch.cuda.mem_get_info()[0]
+    if free_after < free_before - GIB:
+        raise AssertionError(f"22(e): the card's free memory "
+                             f"{free_before / GIB:.2f} GiB before the phase, "
+                             f"{free_after / GIB:.2f} GiB after it")
+    log(f"22(e) the card's free memory {free_before / GIB:.2f} GiB before "
+        f"the phase, {free_after / GIB:.2f} GiB after it; every server and "
+        "daemon reaped")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def check_worker(label, run, info, offset, smi):
+    """The deployed worker of ``info``: its steps logged after ``offset``
+    in its daemon sandbox's stdout, on the card its reservation names
+    (by UUID), K1-K4 ``launches_per_step(PLACED_DEPTH, 0)`` twice.
+    Returns (its launches, its supervisor's session)."""
+    with open(run.record(info, "task.json")) as f:
+        native = json.load(f)["native"]
+    with open(run.record(info, "child.pid")) as f:
+        child = int(f.read())
+    line = run.until(label, [], lambda: run.lines(
+        info.name, "kernel launches ", offset))[-1]
+    steps = run.lines(info.name, "step ", offset)
+    launches = check_card(f"22({label})", info, line, child)
+    want = {n: 2 * v for n, v in launches_per_step(PLACED_DEPTH, 0).items()}
+    if launches != [want] or len(steps) != PLACED_STEPS or not native:
+        raise AssertionError(f"22({label}): steps {steps}, K1-K4 launches "
+                             f"{launches}, want [{want}], native {native}")
+    log(f"22({label}) the worker {info.task_id} logged {steps} and K1-K4 "
+        f"launches {launches} in the daemon's sandbox ({smi})")
+    return launches[0], child
+
+
+def distributed(run, smi):
+    """Phase 22's steps (a)-(e) on ``run``; returns the K1-K4 launches
+    of the two deployments, summed."""
+    # (a) two state servers, a daemon, serve over both; deploy
+    t0 = time.monotonic()
+    url_a = run.state_server("state-a")
+    url_b = run.state_server("state-b", "--standby-of", url_a)
+    log(f"22(a) state servers announced in {time.monotonic() - t0:.1f} s: "
+        f"primary {url_a}, hot standby {url_b}")
+    t0 = time.monotonic()
+    agent_url = run.daemon("agent0")
+    run.write_topology(agent_url)
+    log(f"22(a) agent daemon of {run.host.host_id} announced {agent_url} "
+        f"{time.monotonic() - t0:.1f} s after its start")
+    state_url = f"{url_a},{url_b}"
+    svc = os.path.join(FRAMEWORKS, "svc.yml")
+    t0 = time.monotonic()
+    first = run.serve("serve0", svc, "--state-url", state_url, *run.pairs)
+    daemon0 = run.procs["agent0"]
+    run.until("a", [first, daemon0], lambda: run.ask(
+        "plan", "status", "deploy")["status"] == "COMPLETE")
+    deploy_s = time.monotonic() - t0
+    info = run.tasks()["trainer-0-worker"]
+    log(f"22(a) `plan status deploy` COMPLETE {deploy_s:.1f} s after serve "
+        f"--state-url {state_url} started: {info.name} ({info.task_id}) on "
+        f"{info.agent_id}, CUDA_VISIBLE_DEVICES="
+        f"{info.env['CUDA_VISIBLE_DEVICES']}")
+    launches, child = check_worker("a", run, info, 0, smi)
+    steps_s = time.monotonic() - t0
+    status, body = run.http(f"{agent_url}/v1/agent/steplog?"
+                            "task=trainer-0-worker")
+    records = body.get("records", [])
+    if status != 200 or len(records) < PLACED_STEPS:
+        raise AssertionError(f"22(a): GET /v1/agent/steplog: {status} "
+                             f"{body}")
+    own = children(first.pid)
+    worker_pids = sandbox_pids(run.workdir)
+    if own or os.path.exists(run.local_sandboxes) or child not in worker_pids:
+        raise AssertionError(f"22(a): serve's children {own}, its local "
+                             f"sandbox root there "
+                             f"{os.path.exists(run.local_sandboxes)}, the "
+                             f"daemon's tasks {worker_pids}")
+    replicated = run.run("a", "state-server", "--repl-status", url_b)[1]
+    log(f"22(a) steps and launches {steps_s:.1f} s after serve started; "
+        f"GET {agent_url}/v1/agent/steplog gave {len(records)} step "
+        f"records; serve has no child process and no sandbox root, the "
+        f"worker's session {child} is the daemon's; the standby "
+        f"{replicated['role']} applied seq {replicated['applied_seq']}")
+
+    # (b) the primary dies; the standby is promoted; the sidecar plan
+    # runs through the same serve
+    state_a = run.procs["state-a"]
+    os.killpg(state_a.pid, signal.SIGKILL)
+    state_a.wait(timeout=30)
+    t0 = time.monotonic()
+    run.run("b", "state-server", "--promote", url_b, "--fence-old", url_a)
+    promote_s = time.monotonic() - t0
+    run.ask("plan", "start", "collectives")
+    run.until("b", [first, daemon0], lambda: run.ask(
+        "plan", "status", "collectives")["status"] == "COMPLETE")
+    sidecar_s = time.monotonic() - t0
+    status = run.run("b", "state-server", "--repl-status", url_b)[1]
+    tasks = run.tasks()
+    bench = tasks["trainer-0-collective-bench"]
+    with open(run.record(bench, "exit_status")) as f:
+        bench_exit = f.read().strip()
+    if (status.get("role") != "primary" or status.get("epoch", 0) < 2
+            or first.poll() is not None
+            or tasks["trainer-0-worker"].task_id != info.task_id
+            or bench_exit != "0"
+            or bench.env["CUDA_VISIBLE_DEVICES"]
+            != info.env["CUDA_VISIBLE_DEVICES"]):
+        raise AssertionError(f"22(b): the standby {status}, serve "
+                             f"{first.poll()}, the worker "
+                             f"{tasks['trainer-0-worker'].task_id}, the "
+                             f"bench's exit {bench_exit}: {run.log()}")
+    log(f"22(b) primary SIGKILLed; `state-server --promote` took "
+        f"{promote_s:.1f} s: {url_b} {status['role']} at epoch "
+        f"{status['epoch']}; `plan start collectives` through the same "
+        f"serve (pid {first.pid}): {bench.name} exit 0 on cards "
+        f"{bench.env['CUDA_VISIBLE_DEVICES']}, the plan COMPLETE "
+        f"{sidecar_s:.1f} s after the promotion; the worker kept "
+        f"{info.task_id}")
+
+    # (c) serve stopped; the daemon crashes; a new daemon over the same
+    # workdir and port, then serve again over the same state
+    reserved = run.card_reservations()
+    first.send_signal(signal.SIGTERM)
+    rc = first.wait(timeout=60)
+    os.kill(daemon0.pid, signal.SIGKILL)
+    daemon0.wait(timeout=30)
+    alive = bool(session_pids(child))
+    if rc != 0 or not alive:
+        raise AssertionError(f"22(c): serve exited {rc} on SIGTERM, the "
+                             f"worker alive {alive}: {run.log()}")
+    t0 = time.monotonic()
+    # the new daemon takes no token: `package install` in (e), as the
+    # reference's, sends none to the multi scheduler, which then runs
+    # without one and sends none to the daemon or the state server
+    # (which take none in this phase)
+    again_url = run.daemon("agent1", token=False)
+    again = run.serve("serve1", svc, "--state-url", state_url, *run.pairs)
+    daemon1 = run.procs["agent1"]
+    run.until("c", [again, daemon1], lambda: run.ask(
+        "update", "status")["status"] == "COMPLETE")
+    reconcile_s = time.monotonic() - t0
+    now = run.tasks()["trainer-0-worker"]
+    incarnations = os.listdir(os.path.join(run.sandbox_of(info.name),
+                                           ".super"))
+    if (again_url != agent_url or now.task_id != info.task_id
+            or incarnations != [info.task_id]
+            or run.card_reservations() != reserved
+            or not session_pids(child)):
+        raise AssertionError(f"22(c): the daemon at {again_url}, the worker "
+                             f"{now.task_id} (was {info.task_id}), "
+                             f"incarnations {incarnations}, reservations "
+                             f"{run.card_reservations()} (were {reserved}): "
+                             f"{run.log()}")
+    log(f"22(c) serve SIGTERMed, the daemon SIGKILLed; a new daemon on "
+        f"{again_url} and serve again reconciled in {reconcile_s:.1f} s: "
+        f"the same task {info.task_id}, no new incarnation, the "
+        f"supervisor's session {child} alive, card reservations {reserved}")
+
+    # (d) uninstall
+    again.send_signal(signal.SIGTERM)
+    rc = again.wait(timeout=60)
+    if rc != 0:
+        raise AssertionError(f"22(d): serve exited {rc}: {run.log()}")
+    t0 = time.monotonic()
+    uninstall = run.serve("serve2", svc, "--state-url", state_url,
+                          *run.pairs, announced=False,
+                          env={"SDK_UNINSTALL": "1"})
+    rc = uninstall.wait(timeout=DISTRIBUTED_WAIT_S)
+    uninstall_s = time.monotonic() - t0
+    with open(run.record(info, "exit_status")) as f:
+        fate = int(f.read())
+    end = time.monotonic() + 30
+    while sandbox_pids(run.workdir) and time.monotonic() < end:
+        time.sleep(0.2)
+    left = sandbox_pids(run.workdir)
+    tree = run.tree(url_b)
+    if (rc != 0 or tree or left
+            or fate not in (128 + signal.SIGTERM, 128 + signal.SIGKILL)):
+        raise AssertionError(f"22(d): serve exited {rc}, the promoted "
+                             f"server's tree {tree}, the worker's exit "
+                             f"{fate}, processes left {left}: {run.log()}")
+    log(f"22(d) SDK_UNINSTALL=1 serve exited 0 {uninstall_s:.1f} s after "
+        f"its start: the worker killed (exit {fate}), the promoted "
+        "server's tree empty, no process of the daemon's sandbox root left")
+
+    # (e) serve --multi against the same daemon: a package refused by
+    # admission, one deployed, then removed
+    t0 = time.monotonic()
+    multi = run.serve("multi", "--multi", "--state-url", url_b, token=False,
+                      env={"TPU_TOPOLOGY": "1x1",
+                           "FRAMEWORK_NAME": MULTI_NAME,
+                           "CHECKPOINT_DIR": os.path.join(run.root, "ckpt"),
+                           "TORCH_FRAMEWORK_DIR": FRAMEWORKS})
+    multi_url = run.url
+    package = os.path.join(run.root, f"{MULTI_NAME}.tgz")
+    manifest = run.run("e", "package", "build", FRAMEWORKS, "--name",
+                       MULTI_NAME, "-o", package)[1]
+    log(f"22(e) serve --multi announced {multi_url} and `package build` "
+        f"packed {manifest['files']} files in "
+        f"{time.monotonic() - t0:.1f} s")
+    options = {}
+    for name, trainer in (("bad", {"count": 1, "chips_per_host": 4}),
+                          ("good", {"count": 1, "chips_per_host": 1,
+                                    "train_steps": PLACED_STEPS,
+                                    "cpus": 1, "mem": 4096})):
+        options[name] = os.path.join(run.root, f"{name}-options.json")
+        with open(options[name], "w") as f:
+            json.dump({"trainer": trainer}, f)
+    rc, _, err = run.run("e", "package", "install", package, "--url",
+                         multi_url, "--options", options["bad"], ok=False)
+    with open(package, "rb") as f:
+        payload = f.read()
+    with open(options["bad"]) as f:
+        header = base64.b64encode(f.read().encode()).decode()
+    status, body = run.http(f"{multi_url}/v1/multi/{MULTI_NAME}", "PUT",
+                            payload, {"Content-Type": "application/gzip",
+                                      "X-Service-Options": header})
+    stored = [p for p in run.tree(url_b) if MULTI_NAME in p.split("/")]
+    findings = body.get("findings", [])
+    if rc == 0 or status != 422 or not findings or stored \
+            or '"findings"' not in err:
+        raise AssertionError(f"22(e): the bad options installed with exit "
+                             f"{rc} ({err}); PUT {status} {body}; stored "
+                             f"{stored}")
+    log(f"22(e) `package install --options` asking 4 cards a host on a "
+        f"1x1 topology refused: exit {rc}, HTTP {status} with "
+        f"{[(f['rule'], f['line']) for f in findings]}, nothing stored "
+        f"under {MULTI_NAME}")
+    offset = run.stdout_size("trainer-0-worker")
+    t0 = time.monotonic()
+    run.run("e", "package", "install", package, "--url", multi_url,
+            "--options", options["good"])
+    service_url = f"{multi_url}/v1/multi/{MULTI_NAME}"
+    daemon1 = run.procs["agent1"]
+    run.until("e", [multi, daemon1], lambda: run.ask(
+        "plan", "status", "deploy", url=service_url)["status"] == "COMPLETE")
+    installed = run.tasks(service_url)["trainer-0-worker"]
+    more, _ = check_worker("e", run, installed, offset, smi)
+    log(f"22(e) `package install` deployed {MULTI_NAME} through the daemon "
+        f"in {time.monotonic() - t0:.1f} s: {installed.task_id} on cards "
+        f"{installed.env['CUDA_VISIBLE_DEVICES']}")
+    t0 = time.monotonic()
+    status, body = run.http(service_url, "DELETE")
+    if status != 200:
+        raise AssertionError(f"22(e): DELETE {service_url}: {status} {body}")
+    run.until("e", [multi, daemon1], lambda: run.http(
+        f"{multi_url}/v1/multi")[1] == [])
+    end = time.monotonic() + 30
+    while sandbox_pids(run.workdir) and time.monotonic() < end:
+        time.sleep(0.2)
+    left = sandbox_pids(run.workdir)
+    stored = [p for p in run.tree(url_b) if MULTI_NAME in p.split("/")]
+    if left or stored or not os.path.exists(run.record(installed,
+                                                      "exit_status")):
+        raise AssertionError(f"22(e): after the DELETE processes left "
+                             f"{left}, stored {stored}: {run.log()}")
+    multi.send_signal(signal.SIGTERM)
+    rc = multi.wait(timeout=60)
+    if rc != 0:
+        raise AssertionError(f"22(e): serve --multi exited {rc}: "
+                             f"{run.log()}")
+    log(f"22(e) DELETE /v1/multi/{MULTI_NAME}: uninstalled in "
+        f"{time.monotonic() - t0:.1f} s while serve --multi ran on, its "
+        "worker killed, nothing stored under its name; serve --multi "
+        "exited 0 on SIGTERM")
+    return {n: launches[n] + more[n] for n in launches}
+
+
 def phase_placed_gang(smi):
     """18(b), ``--nccl-gang`` on four cards: the trainer (one host of 4
     cards, topology 2x2) placed on this 4-card host trains from the
@@ -4411,12 +4963,20 @@ def main():
     # launches are the worker's, read from its sandbox)
     watchdog.phase("21 the scheduler process deploys the trainer", 480)
     served_launches = phase_served(smi, watchdog)
+    # phase 22: the distributed control plane (state servers, an agent
+    # daemon, serve over both, serve --multi and the package flow; the
+    # launches are the two deployed workers', read from the daemon's
+    # sandbox)
+    watchdog.phase("22 the distributed control plane deploys the trainer",
+                   420)
+    distributed_launches = phase_distributed(smi, watchdog)
     launches = {n: slot_launches[n] + paged_launches[n] + train_launches[n]
                 + moe_launches[n] + moe_train_launches[n]
                 + gang_one_launches[n] + gang_two_launches[n]
                 + serve_gang_launches[n] + long_counts[n]
                 + placed_launches[n] + planned_launches[n]
-                + scheduled_launches[n] + served_launches[n] for n in logs}
+                + scheduled_launches[n] + served_launches[n]
+                + distributed_launches[n] for n in logs}
     for n in logs:
         train_shapes[n] |= (moe_train_shapes[n] | gang_two_shapes[n]
                             | long_shapes[n])

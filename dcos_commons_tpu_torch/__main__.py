@@ -11,9 +11,8 @@ scheduler process (SchedulerRunner.java:82 via each framework's
 Main.java) and the task-side bootstrap (sdk/bootstrap/main.go:466) —
 plus the operator CLI binary (sdk/cli/main.go:1-12).
 
-Port of ``dcos_commons_tpu/__main__.py``, line for line but the imports; ``agent``,
-``state-server`` and ``package`` import port modules that are not
-there yet and raise their ``ModuleNotFoundError``.
+Port of ``dcos_commons_tpu/__main__.py``, line for line but the imports
+and the analyzers ``analyze`` runs.
 """
 
 from __future__ import annotations

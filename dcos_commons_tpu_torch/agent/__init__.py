@@ -10,17 +10,36 @@ TaskStatus transitions back to the scheduler.
 
 LocalProcessAgent runs tasks as real subprocesses on this machine,
 each under the native ``task_exec`` supervisor (every host in the
-simulated fleet maps to a sandbox directory).
+simulated fleet maps to a sandbox directory).  A deployment runs one
+``AgentDaemon`` per GPU host speaking the same interface over HTTP, and
+the scheduler reaches them through a ``RemoteFleet``.
 
-Port of ``dcos_commons_tpu/agent/__init__.py`` but the agent daemon
-and the remote client (``AgentDaemon``, ``RemoteAgentClient``,
-``RemoteFleet``), which the port does not have yet.
+Port of ``dcos_commons_tpu/agent/__init__.py``, line for line but the
+imports.
 """
 
 from dcos_commons_tpu_torch.agent.base import Agent
 from dcos_commons_tpu_torch.agent.local import LocalProcessAgent
 
+
+def __getattr__(name):
+    # daemon/remote pull in http machinery; import lazily so the core
+    # package stays light for workload-only users
+    if name in ("AgentDaemon",):
+        from dcos_commons_tpu_torch.agent.daemon import AgentDaemon
+
+        return AgentDaemon
+    if name in ("RemoteAgentClient", "RemoteFleet"):
+        from dcos_commons_tpu_torch.agent import remote
+
+        return getattr(remote, name)
+    raise AttributeError(name)
+
+
 __all__ = [
     "Agent",
+    "AgentDaemon",
     "LocalProcessAgent",
+    "RemoteAgentClient",
+    "RemoteFleet",
 ]

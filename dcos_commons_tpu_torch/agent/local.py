@@ -7,8 +7,8 @@ readiness spec stored as a label, PodInfoBuilder.java:511-526, executed
 task-side), and health-check supervision with kill-on-max-failures.
 
 Port of ``dcos_commons_tpu/agent/local.py``, line for line but the
-imports, with a copy of ``agent/daemon.py``'s ``serialize_check``
-(the port has no agent daemon yet).  A task's env is the agent
+imports, with ``agent/daemon.py``'s ``serialize_check`` kept here
+(the port's daemon re-exports it).  A task's env is the agent
 process's own ``os.environ`` with the TaskInfo's env laid over it, so
 a worker's model width and ``PYTHONPATH`` come from the agent's host,
 its card from the evaluator's ``CUDA_VISIBLE_DEVICES``.

@@ -832,6 +832,26 @@ def mesh_span_message(where: str, declared: int, total: int,
     )
 
 
+def fleet_slice_count(inventory, generation: str) -> Optional[int]:
+    """Distinct registered fabrics (``slice_id``) of ``generation`` GPU
+    hosts — the one formula the multi-slice admission gate sizes
+    `gpu: slices: N` against (multi/admission.py).  None when the
+    inventory holds no GPU hosts at all (scheduler bootstrap): sizing
+    against an empty fleet would reject every multi-slice spec exactly
+    when registration must not depend on fleet availability."""
+    if inventory is None:
+        return None
+    slices = set()
+    any_gpu = False
+    for host in inventory.hosts():
+        if not host.generation:
+            continue
+        any_gpu = True
+        if host.generation == generation:
+            slices.add(host.slice_id)
+    return len(slices) if any_gpu else None
+
+
 def _analyze_pod_task(
     rel: str, pod, task, builder, anchor, vocab,
     hbm_mb: int, giant_mb: float, reports_out: List[ShardReport],

@@ -21,9 +21,7 @@ span-boundary kind and asserts convergence lives in the JAX
 package's ``testing/chaos.py`` (not in the port yet).
 
 Port of ``dcos_commons_tpu/ha/__init__.py``, line for line but the
-imports.  ``find_remote_persister`` (``HAState.snapshot``) imports
-``storage/remote.py``, which the port does not have yet: that path
-raises the ``ImportError`` naming it.
+imports.
 """
 
 from dcos_commons_tpu_torch.ha.election import (  # noqa: F401

@@ -4,9 +4,7 @@ Reference: framework/ApiServer.java — the Jetty server started before
 offers are accepted (FrameworkRunner.java:130-138).  Stdlib-only:
 ThreadingHTTPServer + a small regex router; JSON in/out.
 
-Port of ``dcos_commons_tpu/http/server.py``, line for line but the imports; the multi-service
-dispatch imports ``dcos_commons_tpu_torch.multi``, which the port does
-not have yet, and raises its ``ModuleNotFoundError``.
+Port of ``dcos_commons_tpu/http/server.py``, line for line but the imports.
 """
 
 from __future__ import annotations

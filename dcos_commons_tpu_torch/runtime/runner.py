@@ -20,10 +20,7 @@ Exit codes (reference: framework/ProcessExit.java):
     4  invalid configuration
 
 Port of ``dcos_commons_tpu/runtime/runner.py``, line for line but the imports and
-``load_topology``, which reads ``GpuHost`` fields.  The remote agent
-fleet (``agent_url``), the remote state locks (``--state-url``,
-``--ha``) and ``MultiFrameworkRunner`` (``--multi``) import port
-modules that are not there yet and raise their ``ModuleNotFoundError``.
+``load_topology``, which reads ``GpuHost`` fields.
 """
 
 from __future__ import annotations

@@ -6,9 +6,7 @@ state/config store wiring, DefaultConfigurationUpdater invocation
 selectDeployPlan's deploy-vs-update choice (:644), namespacing, and
 the final DefaultScheduler assembly (DefaultScheduler.java:147).
 
-Port of ``dcos_commons_tpu/scheduler/builder.py``, line for line but the imports; the remote
-persister of ``make_persister`` (``storage/remote.py``) is not in the
-port yet, so ``--state-url`` raises its ``ModuleNotFoundError``.
+Port of ``dcos_commons_tpu/scheduler/builder.py``, line for line but the imports.
 """
 
 from __future__ import annotations

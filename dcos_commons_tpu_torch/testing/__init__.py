@@ -13,7 +13,10 @@ as the reference rebuilds ServiceTestRunner over one MemPersister
 
 Port of ``dcos_commons_tpu/testing/__init__.py``, line for line but the
 imports: the scripted ``FakeAgent``, ``drive_until``, the simulation
-runner and its ticks over a default fleet of ``GpuHost``s.
+runner and its ticks over a default fleet of ``GpuHost``s.  The
+process harness (``testing/integration.py``) and the diagnostics
+bundle (``testing/diagnostics.py``) are exported too, loaded on first
+use.
 """
 
 from dcos_commons_tpu_torch.testing.fake_agent import FakeAgent
@@ -118,4 +121,33 @@ __all__ = [
     "ExpectDistinctHosts",
     "ExpectSameHost",
     "ExpectDeclined",
+    "AgentProcess",
+    "SchedulerProcess",
+    "ServiceClient",
+    "WaitTimeout",
+    "wait_for",
+    "start_state_server",
+    "promote_state_server",
+    "reap_orphan_tasks",
+    "dump_bundle",
 ]
+
+_INTEGRATION = (
+    "AgentProcess", "SchedulerProcess", "ServiceClient", "WaitTimeout",
+    "wait_for", "start_state_server", "promote_state_server",
+    "reap_orphan_tasks",
+)
+
+
+def __getattr__(name):
+    # the process harness spawns servers over HTTP; import it lazily so
+    # the simulation harness stays light
+    if name in _INTEGRATION:
+        from dcos_commons_tpu_torch.testing import integration
+
+        return getattr(integration, name)
+    if name == "dump_bundle":
+        from dcos_commons_tpu_torch.testing.diagnostics import dump_bundle
+
+        return dump_bundle
+    raise AttributeError(name)

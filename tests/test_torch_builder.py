@@ -18,7 +18,8 @@ CPU.
 - The state crossing: a ``FileWalPersister`` tree written by one
   package's builder is rebuilt by the other's with the same plans,
   statuses and target config id.
-- ``make_persister``'s remote branch names the port's missing module.
+- ``make_persister``'s remote branch: a ``RemotePersister`` over a live
+  state server.
 - ``tests/test_scheduler_e2e.py``'s flows, twinned: each builder over a
   real ``LocalProcessAgent`` and ``sleep`` tasks (deploy, finish, kill
   and recovery, permanent replace, scheduler restart, a WAL-only
@@ -471,11 +472,25 @@ def test_state_crosses_between_the_packages(writer, cycles, pinned,
     assert views[0][2]  # statuses were stored and read back
 
 
-def test_make_persister_remote_names_the_missing_module():
-    config = TConfig(state_url="http://127.0.0.1:1")
-    with pytest.raises(ModuleNotFoundError) as err:
-        t_builder.make_persister(config)
-    assert err.value.name == "dcos_commons_tpu_torch.storage.remote"
+def test_make_persister_remote_is_a_remote_persister():
+    """``make_persister`` with a ``state_url`` returns a
+    ``RemotePersister`` over that state server (under the store cache),
+    as the JAX one does: what it writes the server holds."""
+    from dcos_commons_tpu.storage import remote as j_remote
+    from dcos_commons_tpu_torch.storage import remote as t_remote
+
+    for builder, config, remote in ((j_builder, JConfig, j_remote),
+                                    (t_builder, TConfig, t_remote)):
+        server = t_remote.StateServer().start()
+        try:
+            persister = builder.make_persister(
+                config(state_url=server.url))
+            assert type(persister).__name__ == "PersisterCache"
+            assert type(persister._backend) is remote.RemotePersister
+            persister.set("/svc/a", b"1")
+            assert server._backend.get("/svc/a") == b"1"
+        finally:
+            server.stop()
 
 
 def test_make_persister_local_is_the_file_wal(tmp_path):

@@ -11,8 +11,10 @@ package's, on the CPU.
   ``verify``, its fenced writes through ``FencedPersister``, and
   resign: the same results, errors, epochs and stored bytes at every
   step, and each package reads the other's lease record.
-- ``find_remote_persister`` names the module the port does not have
-  yet (``storage/remote.py``)."""
+- ``find_remote_persister`` finds the ``RemotePersister`` under the
+  ``FencedPersister`` and cache layers, as the JAX one finds its own,
+  and ``HAState.replication_status`` reads the state server's
+  replication status through it."""
 
 import json
 import os
@@ -213,6 +215,31 @@ def test_lease_record_reads_across_packages(writer, reader):
     assert candidate.epoch == want.epoch + 1
 
 
-def test_remote_persister_lookup_names_the_missing_module():
-    with pytest.raises(ImportError, match="storage.remote"):
-        t_election.find_remote_persister(TMem())
+def test_find_remote_persister_finds_it():
+    import importlib
+
+    found = {}
+    for pkg, election in ELECTION.items():
+        root = election.__name__.rsplit(".ha.", 1)[0]
+        remote = importlib.import_module(f"{root}.storage.remote")
+        cache = importlib.import_module(f"{root}.storage.cache")
+        server = remote.StateServer().start()
+        try:
+            client = remote.RemotePersister(server.url)
+            lease = election.LeaderLock(client, name="svc", owner="a",
+                                        ttl_s=30.0)
+            assert lease.acquire()
+            fenced = election.FencedPersister(
+                cache.PersisterCache(client), lease)
+            status = election.HAState(fenced, "svc", lease=lease) \
+                .replication_status(refresh=True)
+            found[pkg] = (
+                election.find_remote_persister(fenced) is client,
+                election.find_remote_persister(client) is client,
+                election.find_remote_persister(MEM[pkg]()),
+                sorted(status), status["role"], status["epoch"])
+        finally:
+            server.stop()
+    assert found["port"] == found["jax"]
+    assert found["jax"][:3] == (True, True, None)
+    assert found["jax"][4:] == ("primary", 1)

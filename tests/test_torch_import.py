@@ -2,9 +2,9 @@
 chip_smoke.py, imports jax or anything of the JAX package
 (dcos_commons_tpu), nor triton (every kernel is CUDA C++ built with
 nvcc), and its entry points run on the card unless the caller asks for
-the CPU.  The paths that need a port module not written yet (the remote
-agent and its daemon, the state server, packaging, multi-service)
-raise that module's ``ModuleNotFoundError`` and run no stand-in."""
+the CPU.  The distributed control plane (the agent daemon and the
+remote fleet, the state server, packaging, multi-service) imports no
+torch, and its entry points run."""
 
 import ast
 import os
@@ -174,6 +174,20 @@ def test_every_port_module_imports_without_jax():
         "dcos_commons_tpu_torch.cli.client",
         "dcos_commons_tpu_torch.cli.commands",
         "dcos_commons_tpu_torch.runtime.runner",
+        "dcos_commons_tpu_torch.agent.daemon",
+        "dcos_commons_tpu_torch.agent.remote",
+        "dcos_commons_tpu_torch.storage.replication",
+        "dcos_commons_tpu_torch.storage.remote",
+        "dcos_commons_tpu_torch.testing.integration",
+        "dcos_commons_tpu_torch.testing.diagnostics",
+        "dcos_commons_tpu_torch.tools",
+        "dcos_commons_tpu_torch.tools.packaging",
+        "dcos_commons_tpu_torch.tools.registry",
+        "dcos_commons_tpu_torch.multi",
+        "dcos_commons_tpu_torch.multi.discipline",
+        "dcos_commons_tpu_torch.multi.store",
+        "dcos_commons_tpu_torch.multi.admission",
+        "dcos_commons_tpu_torch.multi.scheduler",
     } <= set(mods)
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT, REPO, *mods],
@@ -335,19 +349,30 @@ for mod in sys.argv[2:]:
 print("imported", len(sys.argv) - 2)
 """
 
-# the scheduler process, its API, CLI and agent: control plane only
+# the scheduler process, its API, CLI, agents, state server, multi
+# mode and packaging: control plane only
 CONTROL_PLANE = (
     "dcos_commons_tpu_torch.__main__", "dcos_commons_tpu_torch.cli",
     "dcos_commons_tpu_torch.http", "dcos_commons_tpu_torch.runtime.runner",
     "dcos_commons_tpu_torch.scheduler", "dcos_commons_tpu_torch.uninstall",
     "dcos_commons_tpu_torch.agent.local", "dcos_commons_tpu_torch.security",
     "dcos_commons_tpu_torch.testing", "dcos_commons_tpu_torch.trace",
+    "dcos_commons_tpu_torch.agent.daemon",
+    "dcos_commons_tpu_torch.agent.remote",
+    "dcos_commons_tpu_torch.storage.remote",
+    "dcos_commons_tpu_torch.storage.replication",
+    "dcos_commons_tpu_torch.multi", "dcos_commons_tpu_torch.multi.admission",
+    "dcos_commons_tpu_torch.tools.packaging",
+    "dcos_commons_tpu_torch.tools.registry",
+    "dcos_commons_tpu_torch.testing.integration",
+    "dcos_commons_tpu_torch.testing.diagnostics",
 )
 
 
 def test_control_plane_imports_without_torch():
-    """``serve`` and ``cli`` need no card and no torch: a host without
-    it runs the scheduler process."""
+    """``serve``, ``cli``, ``agent``, ``state-server`` and ``package``
+    need no card and no torch: a host without it runs the scheduler
+    process, an agent daemon or a state server."""
     out = subprocess.run(
         [sys.executable, "-c", _NO_TORCH, REPO, *CONTROL_PLANE],
         capture_output=True, text=True, timeout=120, cwd=REPO,
@@ -356,26 +381,43 @@ def test_control_plane_imports_without_torch():
     assert f"imported {len(CONTROL_PLANE)}" in out.stdout
 
 
+SERVICE = ("name: s\npods:\n  p:\n    count: 1\n    tasks:\n"
+           "      t:\n        goal: RUNNING\n        cmd: x\n"
+           "        cpus: 0.1\n        memory: 32\n")
+
+
 def _serve_multi_put(tmp_path):
-    """PUT a service through an ``ApiServer`` in multi-service mode; the
-    exception its request handler raised."""
+    """PUT an admitted and a refused service through an ``ApiServer``
+    over a real ``MultiServiceScheduler``: the status codes and the
+    services stored."""
+    import urllib.error
     import urllib.request
 
     from dcos_commons_tpu_torch.http import ApiServer
+    from dcos_commons_tpu_torch.multi import MultiServiceScheduler
+    from dcos_commons_tpu_torch.offer.inventory import GpuHost, SliceInventory
+    from dcos_commons_tpu_torch.scheduler.config import SchedulerConfig
+    from dcos_commons_tpu_torch.storage import MemPersister
+    from dcos_commons_tpu_torch.testing import FakeAgent
 
-    server = ApiServer(multi=object())
-    raised = []
-    server._server.handle_error = lambda request, address: raised.append(
-        sys.exc_info()[1])
-    server.start()
+    multi = MultiServiceScheduler(
+        persister=MemPersister(),
+        inventory=SliceInventory([GpuHost(host_id="h0")]),
+        agent=FakeAgent(), scheduler_config=SchedulerConfig())
+    server = ApiServer(multi=multi).start()
+    codes = []
     try:
-        req = urllib.request.Request(server.url + "/v1/multi/svc",
-                                     method="PUT", data=b"name: svc\n")
-        with pytest.raises(Exception):
-            urllib.request.urlopen(req, timeout=30)
+        for name, body in (("s", SERVICE), ("bad", SERVICE)):
+            req = urllib.request.Request(server.url + f"/v1/multi/{name}",
+                                         method="PUT", data=body.encode())
+            try:
+                with urllib.request.urlopen(req, timeout=30) as resp:
+                    codes.append(resp.status)
+            except urllib.error.HTTPError as e:
+                codes.append(e.code)
     finally:
         server.stop()
-    raise raised[0]
+    return codes, multi.service_names()
 
 
 def _runner_entry(entry, tmp_path):
@@ -383,48 +425,66 @@ def _runner_entry(entry, tmp_path):
     from dcos_commons_tpu_torch.runtime import runner
     from dcos_commons_tpu_torch.scheduler.config import SchedulerConfig
     from dcos_commons_tpu_torch.specification.yaml_spec import from_yaml
+    from dcos_commons_tpu_torch.storage.remote import StateServer
 
-    spec = from_yaml("name: s\npods:\n  p:\n    count: 1\n    tasks:\n"
-                     "      t:\n        goal: RUNNING\n        cmd: x\n"
-                     "        cpus: 0.1\n        memory: 32\n")
-    config = SchedulerConfig(state_dir=str(tmp_path / "state"))
+    spec = from_yaml(SERVICE)
+    config = SchedulerConfig(state_dir=str(tmp_path / "state"),
+                             sandbox_root=str(tmp_path / "sbx"))
     if entry == "multi":
-        return runner.MultiFrameworkRunner([spec], config).build()
+        built = runner.MultiFrameworkRunner([spec], config)
+        built.build()
+        return type(built.multi).__name__, built.multi.service_names()
     if entry == "agent_url":
-        return runner.FrameworkRunner(
+        built = runner.FrameworkRunner(
             spec, config, topology_hosts=[GpuHost(host_id="h0")],
-            agent_urls={"h0": "http://127.0.0.1:1"})._build_infra()
-    config.state_url = "http://127.0.0.1:1"
-    return runner.make_instance_lock(config, "scheduler-s")
+            agent_urls={"h0": "http://127.0.0.1:1"})
+        built._build_infra()
+        return type(built._agent).__name__, sorted(built._agent._clients)
+    server = StateServer().start()
+    try:
+        config.state_url = server.url
+        lock = runner.make_instance_lock(config, "scheduler-s")
+        acquired = lock.acquire()
+        lock.release()
+        return type(lock).__name__, acquired
+    finally:
+        server.stop()
 
 
-def _main(command, tmp_path):
+def _main(command, tmp_path, capsys):
     from dcos_commons_tpu_torch.__main__ import main
 
-    return main([command, "--help"])
+    with pytest.raises(SystemExit) as done:
+        main([command, "--help"])
+    usage = capsys.readouterr().out
+    return done.value.code, usage.split()[1:3]
 
 
-UNPORTED = {
-    "main agent": (lambda t: _main("agent", t),
-                   "dcos_commons_tpu_torch.agent.daemon"),
-    "main state-server": (lambda t: _main("state-server", t),
-                          "dcos_commons_tpu_torch.storage.remote"),
-    "main package": (lambda t: _main("package", t),
-                     "dcos_commons_tpu_torch.tools.packaging"),
-    "runner --multi": (lambda t: _runner_entry("multi", t),
-                       "dcos_commons_tpu_torch.multi"),
-    "runner agent_url": (lambda t: _runner_entry("agent_url", t),
-                         "dcos_commons_tpu_torch.agent.remote"),
-    "runner state_url": (lambda t: _runner_entry("state_url", t),
-                         "dcos_commons_tpu_torch.storage.remote"),
-    "server multi dispatch": (_serve_multi_put,
-                              "dcos_commons_tpu_torch.multi"),
+DISTRIBUTED = {
+    "main agent": (lambda t, c: _main("agent", t, c),
+                   (0, ["dcos_commons_tpu_torch", "agent"])),
+    "main state-server": (lambda t, c: _main("state-server", t, c),
+                          (0, ["dcos_commons_tpu_torch", "state-server"])),
+    "main package": (lambda t, c: _main("package", t, c),
+                     (0, ["dcos_commons_tpu_torch", "package"])),
+    "runner --multi": (lambda t, c: _runner_entry("multi", t),
+                       ("MultiServiceScheduler", ["s"])),
+    "runner agent_url": (lambda t, c: _runner_entry("agent_url", t),
+                         ("RemoteFleet", ["h0"])),
+    "runner state_url": (lambda t, c: _runner_entry("state_url", t),
+                         ("RemoteLocker", True)),
+    "server multi dispatch": (lambda t, c: _serve_multi_put(t),
+                              ([200, 422], ["s"])),
 }
 
 
-@pytest.mark.parametrize("entry", sorted(UNPORTED))
-def test_unported_entry_raises_its_missing_module(entry, tmp_path):
-    call, missing = UNPORTED[entry]
-    with pytest.raises(ModuleNotFoundError) as err:
-        call(tmp_path)
-    assert err.value.name == missing
+@pytest.mark.parametrize("entry", sorted(DISTRIBUTED))
+def test_distributed_entry_runs(entry, tmp_path, capsys):
+    """The entry points of the distributed control plane run: the
+    ``agent``, ``state-server`` and ``package`` commands print their
+    usage and exit 0; the runner builds a real ``MultiServiceScheduler``,
+    ``RemoteFleet`` and ``RemoteLocker``; the API's ``/v1/multi``
+    dispatch admits a service (200) and refuses one whose name is not
+    the URL's (422)."""
+    call, expected = DISTRIBUTED[entry]
+    assert call(tmp_path, capsys) == expected

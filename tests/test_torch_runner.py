@@ -22,16 +22,18 @@ each is driven through its own package's CLI:
 Also: a bad YAML exits ``EXIT_BAD_CONFIG`` (4); ``load_topology``
 refuses a file that mixes remote and local hosts and one with no hosts,
 and reads the port's GPU fields; ``--multi``, an ``agent_url``
-topology and ``--state-url`` raise the ``ModuleNotFoundError`` of the
-port module that is not there yet.  Every subprocess has a deadline,
+topology (over an ``agent`` daemon) and ``--state-url`` (over a
+``state-server``) deploy as the JAX package's ``serve`` does.  Every subprocess has a deadline,
 and each test kills its sessions' processes in a ``finally``."""
 
+import importlib
 import json
 import os
 import signal
 import subprocess
 import sys
 import time
+import urllib.request
 
 import pytest
 
@@ -40,9 +42,9 @@ from dcos_commons_tpu.storage import FileWalPersister as JWal
 from dcos_commons_tpu_torch.cli import commands as t_commands
 from dcos_commons_tpu_torch.offer.inventory import GpuHost
 from dcos_commons_tpu_torch.runtime import runner as t_runner
-from dcos_commons_tpu_torch.scheduler.config import SchedulerConfig
 from dcos_commons_tpu_torch.storage import FileWalPersister as TWal
 from test_torch_cli import run_main
+from test_torch_remote_agent import kill_sandbox_tasks
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOKEN = "runner-token"
@@ -278,42 +280,105 @@ def test_load_topology_reads_gpu_hosts_and_refuses_bad_files(tmp_path):
         t_runner.load_topology(str(path))
 
 
-MISSING = {
-    "--multi": "dcos_commons_tpu_torch.multi",
-    "agent_url": "dcos_commons_tpu_torch.agent.remote",
-    "--state-url": "dcos_commons_tpu_torch.storage.remote",
-}
-
-
-@pytest.mark.parametrize("entry", sorted(MISSING))
-def test_unported_paths_raise_their_missing_module(entry, tmp_path):
-    """In process: the runner's call raises the ``ModuleNotFoundError``
-    naming the port's missing module; as a subprocess, ``serve`` fails
-    with that module named and runs no stand-in."""
-    from dcos_commons_tpu_torch.specification.yaml_spec import from_yaml
-
-    spec = from_yaml(SVC)
-    config = SchedulerConfig(state_dir=str(tmp_path / "state"),
-                             sandbox_root=str(tmp_path / "sbx"))
-    with pytest.raises(ModuleNotFoundError) as err:
+def distributed_run(pkg, root, entry):
+    """``serve`` of one package on one of the paths that span
+    processes: ``--multi`` (the service PUT through the API), an
+    ``agent_url`` topology (an ``agent`` daemon of the package) or
+    ``--state-url`` (a ``state-server`` of the package).  Returns the
+    run's milestones."""
+    integration = importlib.import_module(f"{PACKAGES[pkg][0]}.testing."
+                                          "integration")
+    service = Service(pkg, root)
+    token = str(root / "token")
+    helpers = []
+    out = {}
+    try:
+        extra = ()
         if entry == "--multi":
-            t_runner.MultiFrameworkRunner([spec], config).build()
+            extra = ("--multi",)
         elif entry == "agent_url":
-            t_runner.FrameworkRunner(
-                spec, config, topology_hosts=[GpuHost(host_id="h0")],
-                agent_urls={"h0": "http://127.0.0.1:1"})._build_infra()
+            agent = integration.AgentProcess(
+                "h0", str(root / "agent"), REPO,
+                extra_args=["--auth-token-file", token])
+            helpers.append(agent)
+            (root / "cluster.yml").write_text(
+                TOPOLOGY[pkg] + f"    agent_url: {agent.url}\n")
         else:
-            config.state_url = "http://127.0.0.1:1"
-            t_runner.FrameworkRunner(spec, config)
-    assert err.value.name == MISSING[entry]
+            announce = root / "state-url"
+            server = subprocess.Popen(
+                [sys.executable, "-m", service.module, "state-server",
+                 "--data-dir", str(root / "remote-state"),
+                 "--announce-file", str(announce),
+                 "--auth-token-file", token],
+                cwd=REPO, start_new_session=True,
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+            service.procs.append(server)
+            end = time.monotonic() + 30
+            while not announce.exists() or not announce.read_text():
+                assert server.poll() is None and time.monotonic() < end
+                time.sleep(0.05)
+            extra = ("--state-url", announce.read_text().strip())
+        proc = service.start(*extra)
+        url = service.url(proc)
+        if entry == "--multi":
+            # the YAML's service, and a second one PUT through the API;
+            # a service's own API is the multi API under its name
+            req = urllib.request.Request(
+                url + "/v1/multi/other", method="PUT",
+                data=SVC.replace("name: tiny", "name: other").encode(),
+                headers={"Authorization": f"Bearer {TOKEN}"})
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                out["put"] = resp.status
+            for name in ("tiny", "other"):
+                service.wait_complete(f"{url}/v1/multi/{name}")
+            req = urllib.request.Request(
+                url + "/v1/multi", headers={"Authorization":
+                                            f"Bearer {TOKEN}"})
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                out["services"] = json.loads(resp.read())
+        else:
+            service.wait_complete(url)
+            out["pod"] = [(t["name"], t["status"]) for t in service.cli(
+                url, "pod", "status", "app-0")["tasks"]]
+        if entry == "agent_url":
+            sandboxes = root / "agent" / "sandboxes"
+            out["ran on the daemon"] = (sandboxes / "app-0-main").is_dir()
+            out["local sandbox"] = os.path.isdir(service.sandbox)
+        if entry == "--state-url":
+            persister = importlib.import_module(
+                f"{service.module}.storage.remote").RemotePersister(
+                    extra[1], auth_token=TOKEN)
+            out["remote tree"] = sorted(persister.get_children("/"))
+            out["remote tasks"] = persister.get_children("/tasks")
+            out["local state"] = (root / "state").is_dir()
+        out["sigterm"] = service.stop(proc)
+    finally:
+        service.kill_all()
+        for helper in helpers:
+            helper.stop()
+        kill_sandbox_tasks(root)
+    return out
 
-    topology = None
-    extra = ()
+
+@pytest.mark.parametrize("entry", ["--multi", "--state-url", "agent_url"])
+def test_distributed_paths_deploy_as_the_jax_runner(entry, tmp_path):
+    """``serve --multi``, ``serve --state-url`` over a state server and
+    ``serve`` over an ``agent_url`` topology reach deploy COMPLETE as
+    the JAX package's ``serve`` does on the same path, with the same
+    milestones: the service's tasks run in the daemon's sandbox, the
+    state lives on the state server."""
+    runs = [distributed_run(pkg, tmp_path / pkg, entry)
+            for pkg in ("jax", "port")]
+    assert runs[1] == runs[0]
+    assert runs[0]["sigterm"] == 0
     if entry == "--multi":
-        extra = ("--multi",)
-    elif entry == "agent_url":
-        topology = TOPOLOGY["port"] + "    agent_url: http://127.0.0.1:1\n"
+        assert runs[0]["put"] == 200
+        assert sorted(runs[0]["services"]) == ["other", "tiny"]
     else:
-        extra = ("--state-url", "http://127.0.0.1:1")
-    rc, log = serve_rc("port", tmp_path, topology=topology, extra=extra)
-    assert rc != 0 and f"No module named '{MISSING[entry]}" in log, log
+        assert runs[0]["pod"] == [("app-0-main", "TASK_RUNNING")]
+    if entry == "agent_url":
+        assert runs[0]["ran on the daemon"] is True
+        assert runs[0]["local sandbox"] is False
+    if entry == "--state-url":
+        assert runs[0]["remote tasks"] == ["app-0-main"]
+        assert "config-target" in runs[0]["remote tree"]

@@ -28,8 +28,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SCRIPTS = ("test_sim_harness.py", "test_uninstall_decommission.py",
            "test_helloworld.py")
 # cases that run real processes (a LocalProcessAgent, or the remote
-# agent daemon the port does not have yet), not ticks:
-# test_torch_builder.py and test_torch_agent.py twin the local ones
+# agent daemon), not ticks: test_torch_builder.py and
+# test_torch_agent.py twin the local ones, test_torch_remote_agent.py
+# the daemon's
 REAL_PROCESSES = {"test_graceful_shutdown_honors_kill_grace",
                   "test_rlimits_enforced_in_real_task",
                   "test_taskcfg_template_rendered_and_rerendered_on_update"}
