@@ -246,6 +246,25 @@ CUDA card).  Phases, each fatal on failure:
    ``serve --multi`` runs on.  The card's free memory after the phase
    is within 1 GiB of before it; every process is reaped in a
    ``finally``.  Seconds to each milestone are printed.
+23. The scheduler killed at every span boundary, under
+   ``build/smoke/chaos/``.  (a) ``python -m dcos_commons_tpu_torch.analysis
+   lint`` and ``... dur`` over this checkout exit 0 with no finding.
+   (b) The port's chaos harness (``testing/chaos.py`` ``ChaosHarness``)
+   over a ``LocalProcessAgent`` under the native supervisor and this
+   machine's ``GpuHost``, once for each of the five ``CHAOS_KINDS`` at
+   occurrence 1: a service of the one-card trainer (the flagship width at
+   ``PLACED_DEPTH`` layers, 2 steps; it deploys first) and the
+   harness's ``ctl`` pod (``sleep``).  Each run: the kill fires, a
+   successor is built over the same persister, agent and inventory, the
+   deploy converges and the harness's invariants hold (no double
+   reservation, no orphan, no completed step re-run, a status for every
+   WAL'd launch); ``reissued`` is >= 1 after ``post-wal`` and 0 after
+   every other kind, ``double_reservations`` 0; the trainer is launched
+   once, and a trainer the dead scheduler launched keeps its task id
+   (adopted).  After ``mid-status-fan-in`` the adopted trainer's steplog
+   shows its 2 steps, on its card by UUID, with K1-K4
+   ``launches_per_step(PLACED_DEPTH, 0)`` twice.  Every process of the
+   agents is killed at the end of each run.
 8. Run last: every kernel against its plain version at each shape the
    train runs of phases 7, 11, 12 and 15 launched it at (K1 [24576,
    16384 or 4096, 2048] bf16, K2-K4 [192, 128 or 32, 2048, 2048, 128]
@@ -281,8 +300,9 @@ The line before the last is a JSON object ``{"kernels": [...]}``; each
 entry's ``launches`` sums the main-path runs, dense and MoE (phases 3,
 4, 7, 9, 11 and 12, both ranks of 12(b), of 13(b) and 14 and of 15,
 the placed worker of 18(a), the planned one of 19(a), the
-scheduled one of 20(a), the served one of 21(a) and the two
-deployed through the daemon in 22(a) and 22(e)),
+scheduled one of 20(a), the served one of 21(a), the two
+deployed through the daemon in 22(a) and 22(e) and the adopted one of
+23(b)),
 and its ``design`` says how it computes (K1: a warp a
 row with 16-byte vector loads, launched through ctypes; K2-K4: wgmma
 with TMA-fed tiles in bf16, f32 FMA in f32).  The last line is ``{"ok":
@@ -4657,6 +4677,233 @@ def distributed(run, smi):
     return {n: launches[n] + more[n] for n in launches}
 
 
+# -- phase 23: the scheduler killed at every span boundary ------------------
+
+CHAOS_WAIT_S = 120        # each kill-and-converge run, and the trainer's steps
+# where phase 23 waits for the trainer's steps: its launch reached the
+# agent before the scheduler died there, so the successor adopts it
+CHAOS_TRAINED_KIND = "mid-status-fan-in"
+# the harness's service (testing/chaos.py CHAOS_GANG_YAML's ctl pod)
+# with a one-card trainer in place of its 4-host gang.  The trainer
+# deploys first, so each kill at occurrence 1 lands on its rollout
+CHAOS_TRAINER_YAML = """
+name: chaossvc
+pods:
+  trainer:
+    count: 1
+    gang: true
+    gpu:
+      generation: h100
+      chips-per-host: 1
+      topology: 1x1
+    tasks:
+      worker:
+        goal: RUNNING
+        cmd: "python @FRAMEWORKS@/train_worker.py"
+        cpus: 1.0
+        memory: 4096
+        env:
+          TRAIN_STEPS: "@STEPS@"
+          CHECKPOINT_DIR: "@CKPT@"
+  ctl:
+    count: 1
+    tasks:
+      server:
+        goal: RUNNING
+        cmd: "{cmd}"
+        cpus: 0.5
+        memory: 64
+"""
+
+
+def phase_analyzers():
+    """23(a): the port's lint and durcheck gates over this checkout, as
+    their CLI runs them; each must exit 0 with no finding."""
+    for command in ("lint", "dur"):
+        t0 = time.monotonic()
+        out = subprocess.run(
+            [sys.executable, "-m", "dcos_commons_tpu_torch.analysis",
+             command, "--root", ROOT], cwd=ROOT, capture_output=True,
+            text=True, timeout=300)
+        last = (out.stdout.strip().splitlines() or [""])[-1]
+        if out.returncode != 0 or " 0 finding(s)" not in last:
+            raise AssertionError(f"23(a) analysis {command}: exit "
+                                 f"{out.returncode}\n{out.stdout}"
+                                 f"{out.stderr}")
+        log(f"23(a) python -m dcos_commons_tpu_torch.analysis {command}: "
+            f"exit 0, {last} ({time.monotonic() - t0:.1f} s)")
+
+
+def chaos_run(kind, root, host, smi):
+    """One ``ChaosHarness`` run over a ``LocalProcessAgent``: the
+    scheduler killed at the first ``kind``, a successor built over the
+    same persister, agent and inventory, the plan converged and the
+    harness's invariants held.  The trainer must be launched once and,
+    when it ran at the kill, keep its task id.  At
+    ``CHAOS_TRAINED_KIND`` the trainer's steps are waited for; returns
+    its K1-K4 launches there, else None."""
+    from dcos_commons_tpu_torch.testing.chaos import ChaosHarness, KillPoint
+
+    base = os.path.join(root, kind)
+    yaml_text = (CHAOS_TRAINER_YAML.replace("@FRAMEWORKS@", FRAMEWORKS)
+                 .replace("@STEPS@", str(PLACED_STEPS))
+                 .replace("@CKPT@", os.path.join(base, "ckpt")))
+    harness = ChaosHarness(yaml_text=yaml_text, hosts=[host],
+                           workdir=os.path.join(base, "agent"),
+                           task_cmd="sleep 600")
+    agent = harness.agent
+    launched = []
+    launch_one = agent.launch_one
+
+    def counted(info, **kw):
+        launched.append(info)
+        return launch_one(info, **kw)
+
+    agent.launch_one = counted
+    trainer = "trainer-0-worker"
+    t0 = time.monotonic()
+    try:
+        report = harness.run(KillPoint(kind, 1), timeout_s=CHAOS_WAIT_S,
+                             settle_s=0.05)
+        converge_s = time.monotonic() - t0
+        rehydration = report.rehydration or {}
+        names = [info.name for info in launched]
+        # the trainer's id in the store at the kill (STAGING: WAL'd, and
+        # launched unless the kill came between the WAL and the agent)
+        before = (report.prekill_task_ids.get(trainer)
+                  or report.prekill_staging_ids.get(trainer))
+        after = report.final_task_ids.get(trainer)
+        adopted = before is not None and after == before
+        reissued = rehydration.get("reissued")
+        if (not report.killed or not report.converged
+                or report.incarnations != 2
+                or (reissued < 1 if kind == "post-wal" else reissued != 0)
+                or rehydration.get("double_reservations") != 0
+                or names.count(trainer) != 1
+                or (kind == "post-wal") != (before is not None
+                                            and not adopted)):
+            raise AssertionError(
+                f"23(b) {kind}: {report.describe()}, launches {names}, "
+                f"trainer {before} -> {after}")
+        info = next(i for i in launched if i.name == trainer)
+        log(f"23(b) {kind}: the scheduler killed at its first "
+            f"{kind}, the successor converged in {converge_s:.2f} s "
+            f"({report.cycles} cycles): rehydration "
+            f"{ {k: v for k, v in rehydration.items() if k != 'notes'} }, "
+            f"complete before the kill {report.prekill_complete_steps}; "
+            f"the trainer launched once "
+            + ("and adopted across the failover" if adopted else
+               "by the successor's re-issue of the dead one's WAL"
+               if before else "by the successor")
+            + f" ({info.task_id}, CUDA_VISIBLE_DEVICES="
+            f"{info.env['CUDA_VISIBLE_DEVICES']})")
+        if kind != CHAOS_TRAINED_KIND:
+            return None
+        if not adopted:
+            raise AssertionError(f"23(b) {kind}: the trainer was not "
+                                 "adopted")
+        sandbox = agent.sandbox_of(trainer)
+        steplog = os.path.join(sandbox, "steplog.jsonl")
+        stdout = os.path.join(sandbox, "stdout")
+        end = time.monotonic() + CHAOS_WAIT_S
+
+        def lines(prefix):
+            try:
+                with open(stdout, errors="replace") as f:
+                    return [ln for ln in f.read().splitlines()
+                            if ln.startswith(prefix)]
+            except OSError:
+                return []
+
+        while not lines("kernel launches "):
+            if (time.monotonic() > end
+                    or info.task_id not in agent.active_task_ids()):
+                raise AssertionError(f"23(b) {kind}: no kernel launches "
+                                     "line from the adopted trainer")
+            time.sleep(0.5)
+        from dcos_commons_tpu_torch.trace.steplog import read_steplog
+
+        steps = [r for r in read_steplog(steplog) if "step" in r]
+        with open(os.path.join(sandbox, ".super", info.task_id,
+                               "child.pid")) as f:
+            child = int(f.read())
+        launches = check_card(f"23(b) {kind}", info,
+                              lines("kernel launches ")[-1], child)
+        want = {n: 2 * v for n, v in launches_per_step(PLACED_DEPTH,
+                                                        0).items()}
+        if (launches != [want] or len(steps) != PLACED_STEPS
+                or len(lines("step ")) != PLACED_STEPS):
+            raise AssertionError(f"23(b) {kind}: steplog {steps}, K1-K4 "
+                                 f"launches {launches}, want [{want}]")
+        log(f"23(b) {kind}: the adopted trainer's steplog shows "
+            f"{len(steps)} steps, K1-K4 launches {launches} "
+            f"{time.monotonic() - t0:.1f} s after the run began ({smi})")
+        return launches[0]
+    finally:
+        harness.shutdown()
+        for pid in sandbox_pids(os.path.join(base, "agent")):
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+
+
+def phase_chaos(smi, watchdog):
+    """23: (a) the analyzers' gates over this checkout; (b) the chaos
+    harness in ``LocalProcessAgent`` mode, once for each of the five
+    kill kinds, over this machine's ``GpuHost``: the scheduler killed at
+    the first boundary of the kind while it deploys the one-card
+    trainer (the flagship width at ``PLACED_DEPTH`` layers, 2 steps)
+    and the ctl pod.  Returns the K1-K4 launches of the adopted
+    trainer's run."""
+    from dcos_commons_tpu_torch.native import task_exec_path
+    from dcos_commons_tpu_torch.testing.chaos import CHAOS_KINDS
+
+    phase_analyzers()
+    if not task_exec_path():
+        raise AssertionError("23: the native task supervisor did not "
+                             "build (g++)")
+    root = os.path.join(ROOT, "build", "smoke", "chaos")
+    shutil.rmtree(root, ignore_errors=True)
+    host_env = agent_host_env(root, N_LAYERS=str(PLACED_DEPTH))
+    saved = {k: os.environ.get(k) for k in (*host_env, "KEEPALIVE_S")}
+    os.environ.update(host_env)
+    os.environ.pop("KEEPALIVE_S", None)
+    torch.cuda.empty_cache()
+    host = machine_host()
+
+    def kill_all():
+        for pid in sandbox_pids(root):
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+
+    watchdog.cleanups.append(kill_all)
+    t0 = time.monotonic()
+    launches = None
+    try:
+        for kind in CHAOS_KINDS:
+            got = chaos_run(kind, root, host, smi)
+            if got is not None:
+                launches = got
+        end = time.monotonic() + 10
+        while sandbox_pids(root) and time.monotonic() < end:
+            time.sleep(0.1)
+        left = sandbox_pids(root)
+    finally:
+        watchdog.cleanups.remove(kill_all)
+        kill_all()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if left:
+        raise AssertionError(f"23: processes of the agents left: {left}")
+    log(f"23 the five kill kinds converged in "
+        f"{time.monotonic() - t0:.1f} s; no process the agents started is "
+        "left")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def phase_placed_gang(smi):
     """18(b), ``--nccl-gang`` on four cards: the trainer (one host of 4
     cards, topology 2x2) placed on this 4-card host trains from the
@@ -4970,13 +5217,19 @@ def main():
     watchdog.phase("22 the distributed control plane deploys the trainer",
                    420)
     distributed_launches = phase_distributed(smi, watchdog)
+    # phase 23: the analyzers over this checkout, then the scheduler
+    # killed at each span boundary kind while it deploys the trainer
+    # through the local agent (the launches are the adopted worker's,
+    # read from its sandbox)
+    watchdog.phase("23 the scheduler killed at every span boundary", 300)
+    chaos_launches = phase_chaos(smi, watchdog)
     launches = {n: slot_launches[n] + paged_launches[n] + train_launches[n]
                 + moe_launches[n] + moe_train_launches[n]
                 + gang_one_launches[n] + gang_two_launches[n]
                 + serve_gang_launches[n] + long_counts[n]
                 + placed_launches[n] + planned_launches[n]
                 + scheduled_launches[n] + served_launches[n]
-                + distributed_launches[n] for n in logs}
+                + distributed_launches[n] + chaos_launches[n] for n in logs}
     for n in logs:
         train_shapes[n] |= (moe_train_shapes[n] | gang_two_shapes[n]
                             | long_shapes[n])

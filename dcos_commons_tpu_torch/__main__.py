@@ -4,7 +4,7 @@
     python -m dcos_commons_tpu_torch agent --host-id h0 --workdir ./sandbox
     python -m dcos_commons_tpu_torch cli  <verb> ...
     python -m dcos_commons_tpu_torch state-server --data-dir ./cluster-state
-    python -m dcos_commons_tpu_torch analyze            # static analysis: specs | shard
+    python -m dcos_commons_tpu_torch analyze            # static analysis: lint | specs | plan | shard | dur | all
 
 Reference: the pair of process mains the reference ships — the
 scheduler process (SchedulerRunner.java:82 via each framework's
@@ -51,9 +51,9 @@ def main(argv=None) -> int:
 
         return certs_main(rest)
     if command in ("analyze", "lint"):
-        # the port's analyzers: the spec analyzer and shardcheck
+        # the port's analyzers: lint, specs, plan, shard, dur, all
         # (same entry point as `python -m dcos_commons_tpu_torch.analysis`;
-        # `analyze` with no arguments runs shardcheck)
+        # `analyze` with no arguments runs all of them)
         from dcos_commons_tpu_torch.analysis.__main__ import main as analysis_main
 
         return analysis_main(rest)

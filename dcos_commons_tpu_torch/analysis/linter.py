@@ -1,6 +1,4 @@
-"""sdklint core, the part the port's shardcheck uses (from
-``dcos_commons_tpu/analysis/linter.py``): findings, suppressions and
-the result.  The AST rules and the file walker are not ported.
+"""sdklint core: findings, suppressions, and the file walker.
 
 The shape mirrors the build-gate's inline AST lint
 (tests/test_build_gate.py) but as a library: each rule is a small
@@ -13,9 +11,11 @@ the reference's ``@SuppressWarnings`` / checkstyle-off comments do.
 
 from __future__ import annotations
 
+import ast
+import os
 import re
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence, Set
+from typing import Dict, Iterable, List, Optional, Sequence, Set
 
 # comment grammar, valid in .py and .yml alike:
 #   # sdklint: disable=rule-a,rule-b     (this line / the line below)
@@ -57,6 +57,27 @@ class Finding:
             "rule": self.rule,
             "message": self.message,
         }
+
+
+class LintContext:
+    """Everything a rule needs about one source file."""
+
+    def __init__(self, path: str, rel: str, source: str):
+        self.path = path
+        self.rel = rel.replace(os.sep, "/")
+        self.source = source
+        self.lines = source.splitlines()
+        self.tree: Optional[ast.AST] = None
+        try:
+            self.tree = ast.parse(source, filename=path)
+        except SyntaxError:
+            # the build gate (py_compile) owns syntax errors; lint
+            # rules simply don't run on an unparseable file
+            self.tree = None
+
+    def finding(self, node_or_line, rule_id: str, message: str) -> Finding:
+        line = getattr(node_or_line, "lineno", node_or_line)
+        return Finding(self.rel, int(line), rule_id, message)
 
 
 class Suppressions:
@@ -102,3 +123,55 @@ class LintResult:
 
     def render(self) -> str:
         return "\n".join(f.render() for f in self.findings)
+
+
+def _walk_py_files(root: str, subdirs: Iterable[str]) -> List[str]:
+    out = []
+    for sub in subdirs:
+        top = os.path.join(root, sub)
+        for dirpath, dirs, files in os.walk(top):
+            dirs[:] = sorted(d for d in dirs if d != "__pycache__")
+            out += [
+                os.path.join(dirpath, f)
+                for f in sorted(files)
+                if f.endswith(".py")
+            ]
+    return out
+
+
+def lint_paths(
+    paths: Iterable[str],
+    root: str,
+    rules: Optional[Sequence] = None,
+) -> LintResult:
+    from dcos_commons_tpu_torch.analysis.rules import all_rules
+
+    result = LintResult()
+    active = list(rules) if rules is not None else all_rules()
+    for path in paths:
+        with open(path, "r", encoding="utf-8") as f:
+            source = f.read()
+        ctx = LintContext(path, os.path.relpath(path, root), source)
+        suppressions = Suppressions(ctx.lines)
+        result.files_checked += 1
+        for rule in active:
+            if not rule.applies_to(ctx):
+                continue
+            for finding in rule.check(ctx):
+                if suppressions.covers(finding):
+                    result.suppressed.append(finding)
+                else:
+                    result.findings.append(finding)
+    result.findings.sort(key=lambda f: (f.file, f.line, f.rule))
+    return result
+
+
+def lint_tree(
+    root: str,
+    subdirs: Sequence[str] = ("dcos_commons_tpu_torch",),
+    rules: Optional[Sequence] = None,
+) -> LintResult:
+    """Lint every .py file under ``root``'s ``subdirs`` (the library,
+    whose ``frameworks/`` holds the packaged workers; tests are the
+    build gate's problem)."""
+    return lint_paths(_walk_py_files(root, subdirs), root, rules)

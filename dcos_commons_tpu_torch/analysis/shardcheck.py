@@ -760,7 +760,7 @@ def analyze_framework(
             lines = f.read().splitlines()
         try:
             spec = from_yaml_file(path, env)
-        except Exception:  # render/spec errors are the spec validators'; shardcheck only reads specs that render
+        except Exception:  # sdklint: disable=swallowed-exception — speccheck owns render/spec errors; shardcheck only reads specs that render
             continue
         anchor = _make_anchor(lines)
         suppressions = Suppressions(lines)

@@ -38,7 +38,7 @@ class GpuHost:
     slice_id: str = ""
     generation: str = ""             # "" for CPU-only hosts
     node: int = 0
-    gpus: int = 0
+    gpus: int = 0  # sdklint: disable=no-gpus-resource — a host's card count, not a task resource
     cpus: float = 8.0
     memory_mb: int = 16384
     disk_mb: int = 102400
@@ -53,7 +53,7 @@ class GpuHost:
 
     @property
     def chips_per_host(self) -> int:
-        return self.gpus
+        return self.gpus  # sdklint: disable=no-gpus-resource — a host's card count, not a task resource
 
     def chip_ids(self) -> List[str]:
         """Card ids "<host_id>/<k>" for every card this host owns, in
@@ -64,7 +64,7 @@ class GpuHost:
         these strings for every host on every cycle."""
         cached = self.__dict__.get("_chip_ids")
         if cached is None:
-            cached = tuple(f"{self.host_id}/{k}" for k in range(self.gpus))
+            cached = tuple(f"{self.host_id}/{k}" for k in range(self.gpus))  # sdklint: disable=no-gpus-resource — a host's card count, not a task resource
             object.__setattr__(self, "_chip_ids", cached)
         return list(cached)
 
@@ -913,7 +913,7 @@ class ReservationLedgerView:
 def make_test_fleet(
     slice_id: str = "fabric-0",
     nodes: int = 4,
-    gpus: int = 8,
+    gpus: int = 8,  # sdklint: disable=no-gpus-resource — a host's card count, not a task resource
     generation: str = "h100",
     cpus: float = 16.0,
     memory_mb: int = 65536,
@@ -927,7 +927,7 @@ def make_test_fleet(
             slice_id=slice_id,
             generation=generation,
             node=node,
-            gpus=gpus,
+            gpus=gpus,  # sdklint: disable=no-gpus-resource — a host's card count, not a task resource
             cpus=cpus,
             memory_mb=memory_mb,
             zone=zone_of(node) if zone_of else f"zone-{node}",

@@ -156,7 +156,7 @@ def load_topology(path: str) -> Tuple[List[GpuHost], Dict[str, str]]:
             slice_id=entry.get("slice_id", ""),
             generation=entry.get("generation", ""),
             node=int(entry.get("node", 0)),
-            gpus=int(entry.get("gpus", 0)),
+            gpus=int(entry.get("gpus", 0)),  # sdklint: disable=no-gpus-resource — the fleet file's card count of a host, not a task resource
             cpus=float(entry.get("cpus", 8.0)),
             memory_mb=int(entry.get("memory_mb", 16384)),
             disk_mb=int(entry.get("disk_mb", 102400)),
