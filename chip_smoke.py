@@ -17,6 +17,13 @@ CUDA card).  Phases, each fatal on failure:
    backward (``reference_attention_bwd``) at the flagship training shape
    [192, 2048, 128] bf16 causal, at ragged shapes causal and not, f32
    and bf16, and at K2's serving shape; with times as in phase 2.
+3(a). The port's entry point (``dcos_commons_tpu_torch/entry.py``):
+   ``entry()`` builds the reference entry's flagship on the card (vocab
+   8192, d_model 512, 4 layers, 8 heads, d_ff 1408, seq 1024, bf16,
+   batch 4); its forward equals the model's own ``forward`` on the same
+   weights bit for bit and launches K1 nine times and K2 four (none of
+   K3-K4); K1 and K2 are held against their plain versions at its
+   shapes ([4096, 512] and [32, 1024, 1024, 64] causal).
 3. The slot-pool server (``KV_PAGE_TOKENS=0``) of the port's worker at
    the flagship width (bench.py ``flagship_config``: vocab 32768,
    d_model 2048, 16/16 heads, d_ff 8192, bf16; depth 12) answers
@@ -30,10 +37,11 @@ CUDA card).  Phases, each fatal on failure:
    model at the flagship width on the card (kernels) against the same
    step on the CPU (plain versions), same weights and batch.
 7. The port's train worker at the flagship width (bench.py
-   ``flagship_config``: 12 layers, seq 2048, remat full with one stored
-   layer, bf16) takes 6 steps from scratch, writes a checkpoint, and a
-   second run resumes from it to step 8; K1-K4 launch exactly the
-   counts the remat policy implies.  Then ``make_train_step`` at
+   ``flagship_config``: seq 2048, remat full with one stored layer,
+   bf16) at ``WORKER_DEPTH`` (4) of its 12 layers takes 6 steps from
+   scratch, writes a checkpoint, and a second run resumes from it to
+   step 8; K1-K4 launch exactly the counts the remat policy implies.
+   Then ``make_train_step`` of the 12-layer flagship at
    bench.py's training batch (12) is timed: tokens/s, step ms, peak
    device memory; two more steps run under ``torch.profiler``, the
    first its warm-up, and the second's trace gives the ten device
@@ -47,8 +55,9 @@ CUDA card).  Phases, each fatal on failure:
    (capacity factor 1.25), its routing (every top-k choice) compared
    card against CPU first, with the smallest top-k probability margin
    of the CPU run; then phase 5's cross-path check on the MoE model.
-11. The MoE train worker (full remat, no stored layer) from scratch and
-   resumed from its checkpoint, then ``make_train_step`` at bench.py
+11. The MoE train worker (full remat, no stored layer; ``WORKER_DEPTH``
+   layers) from scratch and resumed from its checkpoint, then
+   ``make_train_step`` of the 12-layer MoE flagship at bench.py
    bench_moe's batch 8 timed and profiled as in phase 7, the profile's
    device time split first into the MoE parts (routing, the dispatch
    and combine einsums, the expert FFN: ``time_by_part``).
@@ -164,7 +173,7 @@ CUDA card).  Phases, each fatal on failure:
    ``task_exec`` supervisor (built with g++; no pure-Python
    supervision here).  The agent lays each TaskInfo's env over its own
    environment, which carries the flagship width at ``PLACED_DEPTH``
-   (2) layers (phase 21 runs the full depth), the checkout on
+   (2) layers, the checkout on
    PYTHONPATH and ``python`` as
    this interpreter.  Only ``run_cycle`` drives it, and every status
    comes from ``agent.poll()``.  (a) The svc.yml trainer (one card,
@@ -193,12 +202,12 @@ CUDA card).  Phases, each fatal on failure:
    ``--env`` pairs phase 20's trainer is rendered with (one card, 1x1,
    2 steps), a state directory, a sandbox root and an announce file,
    as a subprocess in a session of its own whose environment carries
-   the flagship width and depth (12 layers); everything else through
+   the flagship width at ``PLACED_DEPTH`` layers; everything else through
    ``python -m dcos_commons_tpu_torch cli`` subprocesses.  (a) A
    request without the token exits 1 on HTTP 401; ``plan status
    deploy`` reaches COMPLETE; the worker logs its 2 steps on the card
    its reservation names, by UUID (``check_card``), with K1-K4 exactly
-   ``launches_per_step(12, 0)`` twice; ``pod status`` and ``debug
+   ``launches_per_step(PLACED_DEPTH, 0)`` twice; ``pod status`` and ``debug
    taskStatuses`` say TASK_RUNNING of the task id whose supervisor
    session is alive.  (b) ``plan start collectives``: the bench
    FINISHED (exit 0) on the worker's card.  (c) SIGTERM: ``serve``
@@ -248,7 +257,8 @@ CUDA card).  Phases, each fatal on failure:
    ``finally``.  Seconds to each milestone are printed.
 23. The scheduler killed at every span boundary, under
    ``build/smoke/chaos/``.  (a) ``python -m dcos_commons_tpu_torch.analysis
-   lint`` and ``... dur`` over this checkout exit 0 with no finding.
+   lint``, ``... dur``, ``... race``, ``... spmd`` and ``... config``
+   over this checkout exit 0 with no finding.
    (b) The port's chaos harness (``testing/chaos.py`` ``ChaosHarness``)
    over a ``LocalProcessAgent`` under the native supervisor and this
    machine's ``GpuHost``, once for each of the five ``CHAOS_KINDS`` at
@@ -263,7 +273,19 @@ CUDA card).  Phases, each fatal on failure:
    once, and a trainer the dead scheduler launched keeps its task id
    (adopted).  After ``mid-status-fan-in`` the adopted trainer's steplog
    shows its 2 steps, on its card by UUID, with K1-K4
-   ``launches_per_step(PLACED_DEPTH, 0)`` twice.  Every process of the
+   ``launches_per_step(PLACED_DEPTH, 0)`` twice.  Then the auto-derived
+   kill matrix (``AutoChaosMatrix``, seed ``CHAOS_SEED`` or 0, budget
+   6) over the same service, a fresh ``LocalProcessAgent`` a run: the
+   coverage probe, then one crash run at each targeted persistence
+   point; each converges with ``double_reservations`` 0, no unWAL'd
+   effect at the death and the trainer launched once; the reached,
+   unreached and targeted points and the seed are printed, and the
+   first trainer adopted across a failover runs its steps as above.
+   (c) The port's dynamic race checker (``racecheck.install()``, the
+   static pass's shared attributes watched) armed around one deploy of
+   the same service by ``DefaultScheduler`` over a
+   ``LocalProcessAgent``, cycling until the trainer's steps (as above):
+   no lock-order cycle, no unordered write.  Every process of the
    agents is killed at the end of each run.
 8. Run last: every kernel against its plain version at each shape the
    train runs of phases 7, 11, 12 and 15 launched it at (K1 [24576,
@@ -301,8 +323,8 @@ entry's ``launches`` sums the main-path runs, dense and MoE (phases 3,
 4, 7, 9, 11 and 12, both ranks of 12(b), of 13(b) and 14 and of 15,
 the placed worker of 18(a), the planned one of 19(a), the
 scheduled one of 20(a), the served one of 21(a), the two
-deployed through the daemon in 22(a) and 22(e) and the adopted one of
-23(b)),
+deployed through the daemon in 22(a) and 22(e), the adopted ones of
+23(b) and 23(c)'s) and the forward of 3(a),
 and its ``design`` says how it computes (K1: a warp a
 row with 16-byte vector loads, launched through ctypes; K2-K4: wgmma
 with TMA-fed tiles in bf16, f32 FMA in f32).  The last line is ``{"ok":
@@ -451,12 +473,14 @@ class Watchdog:
 
     def __init__(self):
         self.timer = None
+        self.t0 = time.monotonic()
         # run before the exit: a phase's processes outside this one's
         # tree (a supervisor's sessions) must not outlive the run
         self.cleanups = []
 
     def phase(self, name, seconds):
         self.stop()
+        log(f"-- phase {name}: {time.monotonic() - self.t0:.1f} s in")
 
         def expire():
             log(f"phase {name} exceeded its {seconds} s limit")
@@ -773,6 +797,60 @@ def phase_kernels(gen):
 
 
 # -- phases 3-5: the serving path ----------------------------------------
+
+
+def phase_entry(logs, gen):
+    """3(a): the port's entry point.  ``entry()`` builds the reference's
+    flagship (vocab 8192, d_model 512, 4 layers, 8 heads, seq 1024,
+    bf16, batch 4) on the card; its forward is the model's own forward
+    on the same weights, bit for bit, and launches K1 at every norm and
+    K2 at every attention.  K1 and K2 are held against their plain
+    versions at the shapes the forward gave them.  Returns (the
+    forward's launches, K1 and K2 errors)."""
+    from dcos_commons_tpu_torch.entry import entry, entry_config
+    from dcos_commons_tpu_torch.models import forward
+
+    config = entry_config()
+    fn, (params, tokens) = entry()
+    if tokens.device.type != "cuda" or params["embed"].device.type != "cuda":
+        raise AssertionError("3(a): entry() built its arguments off the card")
+    torch.cuda.synchronize()
+    for shape_log in logs.values():
+        shape_log.reset()
+    with torch.no_grad():
+        got = fn(params, tokens)
+    torch.cuda.synchronize()
+    launches = {n: s.inner.launches for n, s in logs.items()}
+    shapes = {n: dict(s.shapes) for n, s in logs.items()}
+    with torch.no_grad():
+        want = forward(config, params, tokens)
+        ms = time_ms(lambda: fn(params, tokens), iters=10)
+    torch.cuda.synchronize()
+    rows = int(tokens.numel())
+    k1 = (rows, config.d_model, torch.bfloat16)
+    k2 = (tokens.shape[0] * config.n_heads, tokens.shape[1],
+          tokens.shape[1], config.head_dim, True, torch.bfloat16)
+    if (tuple(got.shape) != (tokens.shape[0], tokens.shape[1], config.vocab)
+            or got.dtype != torch.float32
+            or not bool(torch.isfinite(got).all())
+            or not torch.equal(got, want)):
+        raise AssertionError(
+            f"3(a): entry()'s forward {tuple(got.shape)} {got.dtype} "
+            f"against the model's forward: max |diff| "
+            f"{float((got - want).abs().max())}")
+    if (launches != {"K1": 2 * config.n_layers + 1, "K2": config.n_layers,
+                     "K3": 0, "K4": 0}
+            or set(shapes["K1"]) != {k1} or set(shapes["K2"]) != {k2}):
+        raise AssertionError(f"3(a): launches {launches}, shapes {shapes}")
+    r1 = k1_case(*k1, gen)
+    r2 = k2_case(*k2[:4], torch.bfloat16, True, gen)
+    log(f"3(a) entry(): logits {tuple(got.shape)} {got.dtype}, equal to "
+        f"the model's forward bit for bit, {ms:.3f} ms a forward; K1-K4 "
+        f"launches {launches}; K1 at {list(k1)}: {fmt_k1(r1)}; K2 at "
+        f"{list(k2[:4])} causal: {fmt(r2)}")
+    del params, tokens, got, want
+    torch.cuda.empty_cache()
+    return launches, {"K1": r1["err"], "K2": r2["err"]}
 
 
 def requests_for(vocab, seed=0):
@@ -1196,6 +1274,9 @@ def time_by_part(trace):
     return split
 
 
+PAD_KERNELS = 64  # the recorded window's own first kernels (profile_step)
+
+
 def profile_step(run, top=10, moe=False):
     """Two ``run()``s under ``torch.profiler``, the first a warm-up it
     discards, the second recorded: logs the ``top`` device operations by
@@ -1212,7 +1293,11 @@ def profile_step(run, top=10, moe=False):
     the dense one in the same process, lost its first layer's two K1
     and one K2 launches (counters K1 49, K2 24 a step; trace 47 and
     23), while the dense step, the process's first session, kept
-    them."""
+    them.  With it the dense step once lost 9 of its 3685 device
+    operations, one K1 among them (trace 46, counter 47): so the
+    recorded window also opens with ``PAD_KERNELS`` tiny adds of its
+    own before the step, which take the loss if it comes again (they
+    add about 0.1 ms of element-wise device time to the split)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1230,6 +1315,10 @@ def profile_step(run, top=10, moe=False):
             run()
             torch.cuda.synchronize()
             prof.step()
+            pad = torch.zeros(256, device="cuda")
+            for _ in range(PAD_KERNELS):
+                pad.add_(1.0)
+            torch.cuda.synchronize()
             before = {n: c.launches for n, c in counters.items()}
             t0 = time.perf_counter()
             run()
@@ -1335,23 +1424,30 @@ def time_train_step(logs, config, batch, label, peaks, warmup=2, steps=5):
     return launches
 
 
+# the depth of phases 7 and 11's train workers (the flagship's width):
+# their two runs each save two train states, 10.5 GB apiece at the
+# flagship's 12 layers; the timed steps after them run all 12
+WORKER_DEPTH = 4
+
+
 def phase_train(logs, env, no_remat_layers, steps, timed):
-    """Phases 7 and 11: the train worker of ``env`` from scratch to
-    ``steps[0]``, its resume to ``steps[1]``, then ``timed()`` (the timed
-    step).  Returns the launches by kernel over the three runs and the
+    """Phases 7 and 11: the train worker of ``env`` at ``WORKER_DEPTH``
+    layers from scratch to ``steps[0]``, its resume to ``steps[1]``,
+    then ``timed()`` (the timed step).  Returns the launches by kernel over the three runs and the
     shapes each kernel was launched at in them."""
     ckpt = os.path.join(ROOT, "build", "smoke", "train_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
     # a flagship train-state checkpoint is params + two moments widened
-    # to f32: 872,466,432 x 3 x 4 bytes = 10.5 GB (the MoE flagship's
-    # 872,564,736 as many); with CHECKPOINT_KEEP 1 the next save lands
-    # before the last is pruned
+    # to f32: 872,466,432 x 3 x 4 bytes = 10.5 GB at 12 layers (the MoE
+    # flagship's 872,564,736 as many), 4.0 GB at the workers' 4; with
+    # CHECKPOINT_KEEP 1 the next save lands before the last is pruned
     free = shutil.disk_usage(os.path.join(ROOT, "build")).free
     log(f"disk free under build/: {free / 2**30:.1f} GiB")
     if free < 22e9:
         raise AssertionError("the train worker needs 22 GB of disk for "
                              "two flagship checkpoints")
-    env = dict(env, CHECKPOINT_DIR=ckpt, CHECKPOINT_KEEP="1",
+    env = dict(env, N_LAYERS=str(WORKER_DEPTH), CHECKPOINT_DIR=ckpt,
+               CHECKPOINT_KEEP="1",
                SANDBOX=os.path.join(ROOT, "build", "smoke"))
     shapes = {n: set() for n in logs}
 
@@ -2817,8 +2913,8 @@ PLACED_STEPS = 2          # the placed worker's steps (TRAIN_STEPS)
 PLACED_WIDTH = {k: TRAIN_ENV[k] for k in (
     "VOCAB", "D_MODEL", "N_LAYERS", "N_HEADS", "N_KV_HEADS", "D_FF",
     "SEQ_LEN")}
-# 18(a)'s, 19's and 20's depth: phase 21 runs the same worker at the
-# flagship depth through the scheduler process, and the cut (2.4 GB
+# the depth of the control plane's workers (18(a) through 23): the
+# flagship's 12 layers train in phases 7 and 12(a), and the cut (2.4 GB
 # checkpoint writes in place of 10.5 GB) keeps the one-card smoke
 # inside its time limit
 PLACED_DEPTH = 2
@@ -3989,13 +4085,13 @@ class ServedTrainer:
 def phase_served(smi, watchdog):
     """21: the scheduler process through its entry points: ``serve``
     deploys the svc.yml trainer (one card, 1x1, 2 steps, the worker at
-    the flagship width and depth) and the operator drives it with the
-    CLI; (b) the sidecar through the HTTP verb; (c) ``serve`` stopped
+    the flagship width and ``PLACED_DEPTH``) and the operator drives it
+    with the CLI; (b) the sidecar through the HTTP verb; (c) ``serve`` stopped
     and started again over its state directory, the worker running on;
     (d) the uninstall.  Returns the K1-K4 launches of the worker."""
     root = os.path.join(ROOT, "build", "smoke", SERVED_NAME)
     shutil.rmtree(root, ignore_errors=True)
-    host_env = agent_host_env(root)
+    host_env = agent_host_env(root, N_LAYERS=str(PLACED_DEPTH))
     torch.cuda.empty_cache()
     free_before = torch.cuda.mem_get_info()[0]
     run = ServedTrainer(root, machine_host(), host_env)
@@ -4046,8 +4142,8 @@ def served(run, smi):
                                                    "kernel launches "))[-1]
     steps = run.lines(info.name, "step ")
     launches = check_card("21(a)", info, line, child)
-    want = {n: 2 * v for n, v in launches_per_step(
-        int(PLACED_WIDTH["N_LAYERS"]), 0).items()}
+    want = {n: 2 * v for n, v in launches_per_step(PLACED_DEPTH,
+                                                    0).items()}
     if launches != [want] or len(steps) != PLACED_STEPS or not native:
         raise AssertionError(f"21(a): steps {steps}, K1-K4 launches "
                              f"{launches}, want [{want}], native {native}")
@@ -4716,10 +4812,14 @@ pods:
 """
 
 
+ANALYZERS = ("lint", "dur", "race", "spmd", "config")
+
+
 def phase_analyzers():
-    """23(a): the port's lint and durcheck gates over this checkout, as
-    their CLI runs them; each must exit 0 with no finding."""
-    for command in ("lint", "dur"):
+    """23(a): the port's analyzer gates over this checkout (lint,
+    durcheck, racecheck's static pass, spmdcheck, configcheck), as their
+    CLI runs them; each must exit 0 and print its count, no finding."""
+    for command in ANALYZERS:
         t0 = time.monotonic()
         out = subprocess.run(
             [sys.executable, "-m", "dcos_commons_tpu_torch.analysis",
@@ -4734,6 +4834,83 @@ def phase_analyzers():
             f"exit 0, {last} ({time.monotonic() - t0:.1f} s)")
 
 
+def trainer_launches(label, agent, info, t0, smi, tick=None):
+    """The one-card trainer ``info`` that ``agent`` runs: its steplog
+    shows its ``PLACED_STEPS`` steps, on the card its reservation names
+    by UUID, with K1-K4 ``launches_per_step(PLACED_DEPTH, 0)`` a step.
+    ``tick`` (a scheduler's ``run_cycle``) runs while it waits.
+    Returns its K1-K4 launches."""
+    sandbox = agent.sandbox_of(info.name)
+    steplog = os.path.join(sandbox, "steplog.jsonl")
+    stdout = os.path.join(sandbox, "stdout")
+    end = time.monotonic() + CHAOS_WAIT_S
+
+    def lines(prefix):
+        try:
+            with open(stdout, errors="replace") as f:
+                return [ln for ln in f.read().splitlines()
+                        if ln.startswith(prefix)]
+        except OSError:
+            return []
+
+    while not lines("kernel launches "):
+        if (time.monotonic() > end
+                or info.task_id not in agent.active_task_ids()):
+            raise AssertionError(f"{label}: no kernel launches line from "
+                                 "the trainer")
+        if tick is not None:
+            tick()
+        time.sleep(0.5)
+    from dcos_commons_tpu_torch.trace.steplog import read_steplog
+
+    steps = [r for r in read_steplog(steplog) if "step" in r]
+    with open(os.path.join(sandbox, ".super", info.task_id,
+                           "child.pid")) as f:
+        child = int(f.read())
+    launches = check_card(label, info, lines("kernel launches ")[-1], child)
+    want = {n: 2 * v for n, v in launches_per_step(PLACED_DEPTH,
+                                                    0).items()}
+    if (launches != [want] or len(steps) != PLACED_STEPS
+            or len(lines("step ")) != PLACED_STEPS):
+        raise AssertionError(f"{label}: steplog {steps}, K1-K4 "
+                             f"launches {launches}, want [{want}]")
+    log(f"{label}: the trainer's steplog shows {len(steps)} steps, K1-K4 "
+        f"launches {launches} {time.monotonic() - t0:.1f} s after the run "
+        f"began ({smi})")
+    return launches[0]
+
+
+def counted_launches(harness):
+    """The TaskInfos ``harness``'s agent launches, recorded."""
+    agent = harness.agent
+    launched = []
+    launch_one = agent.launch_one
+
+    def counted(info, **kw):
+        launched.append(info)
+        return launch_one(info, **kw)
+
+    agent.launch_one = counted
+    return launched
+
+
+def chaos_yaml(base):
+    return (CHAOS_TRAINER_YAML.replace("@FRAMEWORKS@", FRAMEWORKS)
+            .replace("@STEPS@", str(PLACED_STEPS))
+            .replace("@CKPT@", os.path.join(base, "ckpt")))
+
+
+def stop_harness(harness, workdir):
+    """The harness's agent shut down and every process it started
+    killed."""
+    from dcos_commons_tpu_torch.testing.chaos import ChaosHarness
+
+    ChaosHarness.shutdown(harness)
+    for pid in sandbox_pids(workdir):
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+
+
 def chaos_run(kind, root, host, smi):
     """One ``ChaosHarness`` run over a ``LocalProcessAgent``: the
     scheduler killed at the first ``kind``, a successor built over the
@@ -4745,21 +4922,11 @@ def chaos_run(kind, root, host, smi):
     from dcos_commons_tpu_torch.testing.chaos import ChaosHarness, KillPoint
 
     base = os.path.join(root, kind)
-    yaml_text = (CHAOS_TRAINER_YAML.replace("@FRAMEWORKS@", FRAMEWORKS)
-                 .replace("@STEPS@", str(PLACED_STEPS))
-                 .replace("@CKPT@", os.path.join(base, "ckpt")))
-    harness = ChaosHarness(yaml_text=yaml_text, hosts=[host],
+    harness = ChaosHarness(yaml_text=chaos_yaml(base), hosts=[host],
                            workdir=os.path.join(base, "agent"),
                            task_cmd="sleep 600")
     agent = harness.agent
-    launched = []
-    launch_one = agent.launch_one
-
-    def counted(info, **kw):
-        launched.append(info)
-        return launch_one(info, **kw)
-
-    agent.launch_one = counted
+    launched = counted_launches(harness)
     trainer = "trainer-0-worker"
     t0 = time.monotonic()
     try:
@@ -4802,48 +4969,209 @@ def chaos_run(kind, root, host, smi):
         if not adopted:
             raise AssertionError(f"23(b) {kind}: the trainer was not "
                                  "adopted")
-        sandbox = agent.sandbox_of(trainer)
-        steplog = os.path.join(sandbox, "steplog.jsonl")
-        stdout = os.path.join(sandbox, "stdout")
-        end = time.monotonic() + CHAOS_WAIT_S
-
-        def lines(prefix):
-            try:
-                with open(stdout, errors="replace") as f:
-                    return [ln for ln in f.read().splitlines()
-                            if ln.startswith(prefix)]
-            except OSError:
-                return []
-
-        while not lines("kernel launches "):
-            if (time.monotonic() > end
-                    or info.task_id not in agent.active_task_ids()):
-                raise AssertionError(f"23(b) {kind}: no kernel launches "
-                                     "line from the adopted trainer")
-            time.sleep(0.5)
-        from dcos_commons_tpu_torch.trace.steplog import read_steplog
-
-        steps = [r for r in read_steplog(steplog) if "step" in r]
-        with open(os.path.join(sandbox, ".super", info.task_id,
-                               "child.pid")) as f:
-            child = int(f.read())
-        launches = check_card(f"23(b) {kind}", info,
-                              lines("kernel launches ")[-1], child)
-        want = {n: 2 * v for n, v in launches_per_step(PLACED_DEPTH,
-                                                        0).items()}
-        if (launches != [want] or len(steps) != PLACED_STEPS
-                or len(lines("step ")) != PLACED_STEPS):
-            raise AssertionError(f"23(b) {kind}: steplog {steps}, K1-K4 "
-                                 f"launches {launches}, want [{want}]")
-        log(f"23(b) {kind}: the adopted trainer's steplog shows "
-            f"{len(steps)} steps, K1-K4 launches {launches} "
-            f"{time.monotonic() - t0:.1f} s after the run began ({smi})")
-        return launches[0]
+        return trainer_launches(f"23(b) {kind}", agent, info, t0, smi)
     finally:
-        harness.shutdown()
-        for pid in sandbox_pids(os.path.join(base, "agent")):
-            with contextlib.suppress(ProcessLookupError):
-                os.kill(pid, signal.SIGKILL)
+        stop_harness(harness, os.path.join(base, "agent"))
+
+
+def point_name(point):
+    if point is None:
+        return "the coverage probe"
+    return f"{point['file']}:{point['line']} {point['kind']}"
+
+
+def auto_chaos(root, host, smi):
+    """23(b), second half: ``AutoChaosMatrix`` (the kill points derived
+    from durcheck's persistence-point map, seed ``CHAOS_SEED``, its
+    default budget) over a ``LocalProcessAgent`` per run, each a fresh
+    world deploying the one-card trainer and the ctl pod: the coverage
+    probe, then one crash run per targeted point.  Every run converges
+    with ``double_reservations`` 0, no unWAL'd effect at the death and
+    the trainer launched once; the first trainer adopted across a
+    failover runs its steps (K1-K4).  Returns (result, the adopted
+    trainer's launches or None)."""
+    from dcos_commons_tpu_torch.testing.chaos import (
+        AutoChaosMatrix,
+        ChaosHarness,
+        point_key,
+    )
+
+    trainer = "trainer-0-worker"
+    seed = int(os.environ.get("CHAOS_SEED", "0"))
+    runs = []
+    adopted = []
+    t_start = time.monotonic()
+
+    def settle(run):
+        """A run's checks and the adopted trainer's steps (the first
+        one's), then every process of the run killed."""
+        harness, boundary = run["harness"], run["boundary"]
+        try:
+            if boundary is None:
+                raise AssertionError(f"23(b) auto run {run['i']}: no report")
+            report = boundary.report
+            rehydration = report.rehydration or {}
+            names = [info.name for info in run["launched"]]
+            probe = boundary.point is None
+            before = (report.prekill_task_ids.get(trainer)
+                      or report.prekill_staging_ids.get(trainer))
+            after = report.final_task_ids.get(trainer)
+            kept = before is not None and after == before
+            if (not report.converged or report.killed == probe
+                    or (not probe and (report.incarnations != 2
+                                       or rehydration.get(
+                                           "double_reservations") != 0))
+                    or boundary.unwald_at_death
+                    or names.count(trainer) != 1):
+                raise AssertionError(
+                    f"23(b) auto {point_name(boundary.point)}: "
+                    f"{report.describe()}, launches {names}, unWAL'd "
+                    f"{boundary.unwald_at_death}")
+            counts = {k: v for k, v in rehydration.items() if k != "notes"}
+            log(f"23(b) auto {point_name(boundary.point)}: "
+                + ("converged" if probe else
+                   "killed there, the successor converged")
+                + f" in {run['seconds']:.2f} s ({report.cycles} cycles"
+                + ("" if probe else f", rehydration {counts}")
+                + "); the trainer launched once"
+                + (" and adopted across the failover" if kept and not probe
+                   else ""))
+            if kept and not probe and not adopted:
+                info = next(i for i in run["launched"] if i.name == trainer)
+                adopted.append(trainer_launches(
+                    f"23(b) auto {point_name(boundary.point)}",
+                    harness.agent, info, run["t0"], smi))
+        finally:
+            stop_harness(harness, run["workdir"])
+            run["stopped"] = True
+
+    def factory(world_seed):
+        if runs:
+            settle(runs[-1])
+        base = os.path.join(root, f"auto-{len(runs)}")
+        workdir = os.path.join(base, "agent")
+        harness = ChaosHarness(yaml_text=chaos_yaml(base), hosts=[host],
+                               workdir=workdir, seed=world_seed,
+                               task_cmd="sleep 600")
+        run = dict(i=len(runs), harness=harness, workdir=workdir,
+                   launched=counted_launches(harness), boundary=None,
+                   stopped=False, t0=time.monotonic(), seconds=0.0)
+        run_boundary = harness.run_boundary
+
+        def recorded(proxy, **kw):
+            run["boundary"] = run_boundary(proxy, **kw)
+            run["seconds"] = time.monotonic() - run["t0"]
+            return run["boundary"]
+
+        harness.run_boundary = recorded
+        # the matrix shuts each world down after its run; settle()
+        # does, once it has read the run
+        harness.shutdown = lambda: None
+        runs.append(run)
+        return harness
+
+    matrix = AutoChaosMatrix(seed=seed, root=ROOT)
+    try:
+        result = matrix.run(factory, timeout_s=CHAOS_WAIT_S)
+        settle(runs[-1])
+    finally:
+        for run in runs:
+            if not run["stopped"]:
+                stop_harness(run["harness"], run["workdir"])
+    reached = {point_key(p) for p in result.reached}
+    unreached = {point_key(p) for p in result.unreached}
+    if (reached & unreached or reached | unreached
+            != {point_key(p) for p in result.all_points}
+            or len(result.reports) != len(result.targeted)
+            or len(result.targeted) != min(matrix.budget,
+                                           len(result.reached))
+            or len(runs) != 1 + len(result.targeted)):
+        raise AssertionError(f"23(b) auto: {result.describe()}")
+    log(f"23(b) auto {result.describe()}: seed {result.seed}, budget "
+        f"{matrix.budget}, {len(result.all_points)} points, reached "
+        f"{len(result.reached)}, unreached {len(result.unreached)}, "
+        f"targeted {[point_name(p) for p in result.targeted]}; "
+        f"{time.monotonic() - t_start:.1f} s")
+    log("23(b) auto unreached: "
+        + ", ".join(point_name(p) for p in result.unreached))
+    return result, (adopted[0] if adopted else None)
+
+
+# the classes the racecheck of 23(c) probes (those of its process: the
+# scheduler, its health monitor; the rest are watched should they run)
+RACE_WATCHED = (
+    ("dcos_commons_tpu_torch.scheduler.scheduler", "DefaultScheduler"),
+    ("dcos_commons_tpu_torch.health.monitor", "HealthMonitor"),
+    ("dcos_commons_tpu_torch.multi.scheduler", "MultiServiceScheduler"),
+    ("dcos_commons_tpu_torch.serve.engine", "SlotEngine"),
+    ("dcos_commons_tpu_torch.utils.microbatch", "MicroBatcher"),
+    ("dcos_commons_tpu_torch.utils.checkpoint", "AsyncCheckpointer"),
+)
+
+
+def phase_racecheck(root, host, smi):
+    """23(c): the port's dynamic race checker (``racecheck.install()``)
+    armed around one deploy of the one-card trainer and the ctl pod by
+    ``DefaultScheduler`` over a ``LocalProcessAgent``: every lock the
+    scheduler, the agent and their threads create is instrumented, the
+    attributes the static pass calls cross-thread shared are probed,
+    and the scheduler keeps cycling while the trainer runs its steps.
+    Fails on any lock-order cycle or unordered write.  Returns the
+    trainer's K1-K4 launches."""
+    import importlib
+
+    from dcos_commons_tpu_torch.analysis import racecheck
+    from dcos_commons_tpu_torch.testing.chaos import ChaosHarness
+
+    if racecheck.is_enabled():
+        raise AssertionError("23(c): a race checker is already installed")
+    shared = racecheck.shared_write_map(ROOT)
+    base = os.path.join(root, "racecheck")
+    workdir = os.path.join(base, "agent")
+    t0 = time.monotonic()
+    racecheck.install()
+    racecheck.reset()
+    harness = None
+    try:
+        watched = {}
+        for module, name in RACE_WATCHED:
+            cls = getattr(importlib.import_module(module), name)
+            if shared.get(name):
+                racecheck.watch_type(cls, shared[name])
+                watched[name] = list(shared[name])
+        # built under the checker: its locks and threads are recorded
+        harness = ChaosHarness(yaml_text=chaos_yaml(base), hosts=[host],
+                               workdir=workdir, task_cmd="sleep 600")
+        launched = counted_launches(harness)
+        report = harness.run(None, timeout_s=CHAOS_WAIT_S)
+        deploy_s = time.monotonic() - t0
+        info = next(i for i in launched if i.name == "trainer-0-worker")
+        if not report.converged or len(launched) != 2:
+            raise AssertionError(f"23(c): {report.describe()}, launches "
+                                 f"{[i.name for i in launched]}")
+        launches = trainer_launches("23(c)", harness.agent, info, t0, smi,
+                                    tick=harness.scheduler.run_cycle)
+        rep = racecheck.report()
+        sites = len(racecheck._threads_per_site)
+        writes = len(racecheck._watched_writes)
+    finally:
+        racecheck.unwatch_types()
+        racecheck.uninstall()
+        racecheck.reset()
+        if harness is not None:
+            stop_harness(harness, workdir)
+    if rep.cycles or rep.races:
+        raise AssertionError(f"23(c): {rep.describe()}")
+    if not sites:
+        raise AssertionError("23(c): the checker saw no lock acquired")
+    log(f"23(c) racecheck around the deploy: deploy COMPLETE in "
+        f"{deploy_s:.2f} s, the trainer's steps read "
+        f"{time.monotonic() - t0:.1f} s after install(); {sites} lock "
+        f"sites acquired, {len(rep.edges)} lock-order edges, 0 cycles; "
+        f"watched {watched}: {writes} attributes written, 0 unordered "
+        f"write pairs; written by >1 thread with a write holding no lock "
+        f"(ordered by the clocks, not a race): {rep.unguarded_writes}")
+    return launches
 
 
 def phase_chaos(smi, watchdog):
@@ -4852,8 +5180,10 @@ def phase_chaos(smi, watchdog):
     kill kinds, over this machine's ``GpuHost``: the scheduler killed at
     the first boundary of the kind while it deploys the one-card
     trainer (the flagship width at ``PLACED_DEPTH`` layers, 2 steps)
-    and the ctl pod.  Returns the K1-K4 launches of the adopted
-    trainer's run."""
+    and the ctl pod; then the auto-derived kill matrix over the same
+    service (``auto_chaos``); (c) the dynamic race checker around one
+    more deploy (``phase_racecheck``).  Returns the K1-K4 launches of
+    the trainers that ran their steps (the adopted ones of (b), (c)'s)."""
     from dcos_commons_tpu_torch.native import task_exec_path
     from dcos_commons_tpu_torch.testing.chaos import CHAOS_KINDS
 
@@ -4877,12 +5207,20 @@ def phase_chaos(smi, watchdog):
 
     watchdog.cleanups.append(kill_all)
     t0 = time.monotonic()
-    launches = None
+    launches = []
     try:
         for kind in CHAOS_KINDS:
             got = chaos_run(kind, root, host, smi)
             if got is not None:
-                launches = got
+                launches.append(got)
+        log(f"23(b) the five kill kinds converged in "
+            f"{time.monotonic() - t0:.1f} s")
+        watchdog.phase("23(b) the auto-derived kill matrix", 300)
+        _result, got = auto_chaos(root, host, smi)
+        if got is not None:
+            launches.append(got)
+        watchdog.phase("23(c) racecheck around a deploy", 180)
+        launches.append(phase_racecheck(root, host, smi))
         end = time.monotonic() + 10
         while sandbox_pids(root) and time.monotonic() < end:
             time.sleep(0.1)
@@ -4897,11 +5235,10 @@ def phase_chaos(smi, watchdog):
                 os.environ[k] = v
     if left:
         raise AssertionError(f"23: processes of the agents left: {left}")
-    log(f"23 the five kill kinds converged in "
-        f"{time.monotonic() - t0:.1f} s; no process the agents started is "
-        "left")
+    log(f"23(b)-(c) {time.monotonic() - t0:.1f} s; no process the agents "
+        "started is left")
     shutil.rmtree(root, ignore_errors=True)
-    return launches
+    return {n: sum(got[n] for got in launches) for n in launches[0]}
 
 
 def phase_placed_gang(smi):
@@ -5052,6 +5389,12 @@ def main():
     watchdog.phase("2b backward kernels", 240)
     bwd_errs, (r3, r4) = phase_backward(gen)
     errs.update(bwd_errs)
+
+    # phase 3(a): the entry point's forward
+    watchdog.phase("3a entry() forward", 180)
+    entry_launches, entry_errs = phase_entry(logs, gen)
+    for name, err in entry_errs.items():
+        errs[name] = max(errs[name], err)
 
     # phase 3: slot pool at the flagship width
     watchdog.phase("3 slot-pool serving", 300)
@@ -5218,12 +5561,14 @@ def main():
                    420)
     distributed_launches = phase_distributed(smi, watchdog)
     # phase 23: the analyzers over this checkout, then the scheduler
-    # killed at each span boundary kind while it deploys the trainer
-    # through the local agent (the launches are the adopted worker's,
-    # read from its sandbox)
+    # killed at each span boundary kind and at the auto-derived points
+    # while it deploys the trainer through the local agent, then one
+    # deploy under the race checker (the launches are the adopted
+    # workers' and the checked deploy's, read from their sandboxes)
     watchdog.phase("23 the scheduler killed at every span boundary", 300)
     chaos_launches = phase_chaos(smi, watchdog)
-    launches = {n: slot_launches[n] + paged_launches[n] + train_launches[n]
+    launches = {n: entry_launches[n] + slot_launches[n] + paged_launches[n]
+                + train_launches[n]
                 + moe_launches[n] + moe_train_launches[n]
                 + gang_one_launches[n] + gang_two_launches[n]
                 + serve_gang_launches[n] + long_counts[n]

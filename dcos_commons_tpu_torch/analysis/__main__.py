@@ -1,23 +1,25 @@
 """sdklint CLI: ``python -m dcos_commons_tpu_torch.analysis <command>``.
 
 Port of ``dcos_commons_tpu/analysis/__main__.py`` over the port's
-tree, with the analyzers the port has.  Commands (also reachable as
+tree, every analyzer of the reference.  Commands (also reachable as
 ``python -m dcos_commons_tpu_torch analyze``):
 
     lint     framework lint (AST rules + baseline)
     specs    ahead-of-time spec analyzer (the port's frameworks/)
+    spmd     SPMD collective-safety analyzer (cross-rank divergence)
     plan     plan state-machine model checker (exhaustive BFS)
     shard    static sharding / card-memory footprint / collective-cost
              analyzer
+    race     thread-ownership / happens-before race analyzer (static
+             half; the dynamic half is racecheck.install())
+    config   env/config contract analyzer (options.json ⇄ YAML
+             templates ⇄ task env ⇄ worker/SDK reads)
     dur      crash-consistency / durability-ordering analyzer
              (WAL-before-effect, replay parity, fence coverage,
              atomic pairs, file discipline + the persistence-point
              map the chaos harness auto-derives kill points from)
     all      every analyzer above — the CI gate; default when no
              command given
-
-``spmd``, ``race`` and ``config`` are the reference's too; the port
-has no copy of them yet, so they exit 2 and say so.
 
 Flag spelling (``--lint``/.../``--dur``/``--all``) is accepted too,
 composably: ``--lint --dur`` runs exactly those two.
@@ -26,11 +28,15 @@ Options:
     --json              one machine-readable JSON document on stdout
                         (findings per analyzer, plan.states_explored,
                         shard.footprint / shard.cost per analyzed pod,
-                        dur.persistence_points / dur.per_kind)
+                        dur.persistence_points / dur.per_kind,
+                        race.shared_attrs / race.roles,
+                        config.env_vars / config.flows / config.per_rule)
+    --docs              render the config flow graph to
+                        docs/config-reference-torch.md (implies config)
     --points            dump the durcheck persistence-point map as a
                         JSON document and exit (for the chaos harness)
     --update-baseline   rewrite the baseline from current
-                        lint+shard+dur findings
+                        lint+spmd+shard+race+config+dur findings
     --catalog           print the rule catalogs and exit
     --root DIR          repo root (default: the one holding this package)
     --baseline PATH     baseline file (default: .sdklint-torch-baseline.json
@@ -51,7 +57,7 @@ Options:
     --verbose/-v        also list suppressed and baselined findings
 
 Exit code 0 = no non-baselined findings and no plan violations;
-1 = findings; 2 = bad usage or an analyzer the port does not have.
+1 = findings; 2 = bad usage.
 """
 
 from __future__ import annotations
@@ -66,8 +72,6 @@ _COMMANDS = (
     "lint", "specs", "spmd", "plan", "shard", "race", "config", "dur",
     "all",
 )
-# the reference's analyzers the port has no copy of yet
-_NOT_PORTED = ("spmd", "race", "config")
 
 
 def _default_root() -> str:
@@ -79,15 +83,21 @@ def _default_root() -> str:
 def main(argv: Optional[List[str]] = None) -> int:
     from dcos_commons_tpu_torch.analysis import baseline as baseline_mod
     from dcos_commons_tpu_torch.analysis import (
+        configcheck,
         durcheck,
         plancheck,
+        racecheck,
         shardcheck,
         speccheck,
+        spmdcheck,
     )
+    from dcos_commons_tpu_torch.analysis.configcheck import config_rule_catalog
     from dcos_commons_tpu_torch.analysis.durcheck import dur_rule_catalog
     from dcos_commons_tpu_torch.analysis.linter import lint_tree
+    from dcos_commons_tpu_torch.analysis.racecheck import race_rule_catalog
     from dcos_commons_tpu_torch.analysis.rules import rule_catalog
     from dcos_commons_tpu_torch.analysis.shardcheck import shard_rule_catalog
+    from dcos_commons_tpu_torch.analysis.spmdcheck import spmd_rule_catalog
 
     argv = list(sys.argv[1:] if argv is None else argv)
     # subcommand spelling -> the equivalent mode flag
@@ -107,6 +117,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--config", action="store_true")
     parser.add_argument("--dur", action="store_true")
     parser.add_argument("--all", action="store_true")
+    parser.add_argument(
+        "--docs", action="store_true",
+        help="render the config flow graph to "
+             "docs/config-reference-torch.md (implies --config)",
+    )
     parser.add_argument(
         "--points", action="store_true",
         help="dump the durcheck persistence-point map as JSON and exit",
@@ -143,18 +158,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     args = parser.parse_args(argv)
 
-    missing = [name for name in _NOT_PORTED if getattr(args, name)]
-    if missing:
-        print(
-            f"{', '.join(missing)}: not in the port yet (slice 16)",
-            file=sys.stderr,
-        )
-        return 2
-
     if args.catalog:
         print(rule_catalog())
         print()
+        print(spmd_rule_catalog())
+        print()
         print(shard_rule_catalog())
+        print()
+        print(race_rule_catalog())
+        print()
+        print(config_rule_catalog())
         print()
         print(dur_rule_catalog())
         return 0
@@ -172,12 +185,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         ))
         return 0
 
-    any_mode = (args.lint or args.specs or args.plan or args.shard
-                or args.dur)
+    any_mode = (args.lint or args.specs or args.spmd or args.plan
+                or args.shard or args.race or args.config
+                or args.dur or args.docs)
     run_lint = args.lint or args.all or not any_mode
     run_specs = args.specs or args.all or not any_mode
+    run_spmd = args.spmd or args.all or not any_mode
     run_plan = args.plan or args.all or not any_mode
     run_shard = args.shard or args.all or not any_mode
+    run_race = args.race or args.all or not any_mode
+    run_config = args.config or args.docs or args.all or not any_mode
     run_dur = args.dur or args.all or not any_mode
     root = os.path.abspath(args.root)
     baseline_path = args.baseline or baseline_mod.baseline_path(root)
@@ -189,9 +206,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         if not args.as_json:
             print(line)
 
-    # lint, shard and dur share the baseline file; --update-baseline
-    # rewrites it from every result set that ran so none clobbers the
-    # others' entries
+    # lint, spmd, shard, race, config and dur share the baseline file;
+    # --update-baseline rewrites it from every result set that ran so
+    # none clobbers the others' entries
     baseline_feed = []
 
     def run_findings_pass(name: str, result) -> None:
@@ -225,6 +242,31 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if run_lint:
         run_findings_pass("lint", lint_tree(root))
+
+    if run_spmd:
+        run_findings_pass("spmd", spmdcheck.analyze_tree(root))
+
+    if run_race:
+        race_result = racecheck.analyze_tree(root)
+        run_findings_pass("race", race_result)
+        # trend keys: how much shared state the thread model carries
+        doc["race"]["shared_attrs"] = sum(
+            len(attrs) for attrs in race_result.shared_attrs.values()
+        )
+        doc["race"]["roles"] = len({
+            role
+            for roles in race_result.roles.values()
+            for role in roles
+        })
+        doc["race"]["classes"] = {
+            cls: {
+                "shared_attrs": race_result.shared_attrs.get(cls, []),
+                "roles": race_result.roles.get(cls, []),
+            }
+            for cls in sorted(
+                set(race_result.shared_attrs) | set(race_result.roles)
+            )
+        }
 
     if run_shard:
         shard_result = shardcheck.analyze_all(
@@ -270,6 +312,20 @@ def main(argv: Optional[List[str]] = None) -> int:
                 )
                 failed |= comparison["regression"] is True
 
+    if run_config:
+        config_result = configcheck.analyze_all(root)
+        run_findings_pass("config", config_result)
+        # trend keys: how much of the env surface the graph covers
+        doc["config"]["env_vars"] = len(config_result.env_vars)
+        doc["config"]["flows"] = len(config_result.flows)
+        doc["config"]["per_rule"] = dict(config_result.per_rule)
+        if args.docs:
+            docs_path = configcheck.write_config_reference(
+                root, config_result
+            )
+            emit(f"docs: wrote {docs_path}")
+            doc["config"]["docs_path"] = docs_path
+
     if run_dur:
         dur_result = durcheck.analyze_tree(root)
         run_findings_pass("dur", dur_result)
@@ -284,23 +340,29 @@ def main(argv: Optional[List[str]] = None) -> int:
         doc["dur"]["per_rule"] = dict(dur_result.per_rule)
 
     if args.update_baseline:
-        if not (run_lint or run_shard or run_dur):
+        if not (run_lint or run_spmd or run_shard or run_race
+                or run_config or run_dur):
             emit(
-                "baseline: nothing to update — only lint, shard, and "
-                "dur feed the baseline; run one of them"
+                "baseline: nothing to update — only lint, spmd, shard, "
+                "race, config, and dur feed the baseline; run one of "
+                "them"
             )
         else:
             # entries of a baseline-feeding pass that did NOT run
             # survive verbatim: `--lint --update-baseline` must not
-            # erase triaged shard/dur debt it never recomputed (and
+            # erase triaged spmd/shard debt it never recomputed (and
             # vice versa)
             retain = {}
             for fp, count in known.items():
                 rule = fp.rsplit("::", 1)[-1]
-                if rule.startswith(tuple(f"{n}-" for n in _NOT_PORTED)):
-                    owner_ran = False
+                if rule.startswith("spmd-"):
+                    owner_ran = run_spmd
                 elif rule.startswith("shard-"):
                     owner_ran = run_shard
+                elif rule.startswith("race-"):
+                    owner_ran = run_race
+                elif rule.startswith("config-"):
+                    owner_ran = run_config
                 elif rule.startswith("dur-"):
                     owner_ran = run_dur
                 else:

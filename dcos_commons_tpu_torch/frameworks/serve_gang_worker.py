@@ -306,6 +306,7 @@ def build_rank(env: Mapping[str, str],
     config = config_from_env(env, dtype=dtype, remat=False)
     max_len = int(env.get("MAX_LEN", "256"))
     # unset SERVE_BATCH means a bare/dev launch: one request
+    # sdklint: disable=config-default-drift — dev fallback
     batch = int(env.get("SERVE_BATCH", "1"))
     slots = int(env.get("SERVE_SLOTS") or 0) or batch
     new_tokens = int(env.get("MAX_NEW_TOKENS", "32"))

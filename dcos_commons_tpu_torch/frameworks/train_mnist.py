@@ -44,6 +44,7 @@ def main(env: Optional[Mapping[str, str]] = None) -> int:
             else "host")
     # demo-scale run: 60 steps converges MNIST; the options default
     # 100 sizes the full trainer
+    # sdklint: disable=config-default-drift — demo scale
     steps = int(env.get("TRAIN_STEPS", "60"))
     params = mlp_init(MlpConfig(), seed=0, device=device)
     step_fn = mlp_train_step(mlp_adam(params, 1e-3))

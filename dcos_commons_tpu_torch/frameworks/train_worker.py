@@ -164,7 +164,10 @@ def train(env: Mapping[str, str],
     if device.type == "cuda":
         torch.cuda.set_device(device)
     contract = contract_from_env(env)
-    rank, world = gang_rank(contract, local_rank, local_devices)
+    rank = gang_rank(contract, local_rank, local_devices)[0]
+    # the gang's size comes from the contract alone, the same on every
+    # rank: the branches on it below are gang-uniform
+    world = contract["worker_count"] * local_devices
     if local_rank != 0:
         log = lambda msg: None  # noqa: E731 — a worker logs once
     initialize_from_env(env, "nccl" if device.type == "cuda" else "gloo",
@@ -236,6 +239,7 @@ def train(env: Mapping[str, str],
                 f"{sorted(starts)}; wipe the stale sandboxes or restore a "
                 "shared CHECKPOINT_DIR"
             )
+        start = starts[0]
     grad_accum = max(1, int(env.get("TRAIN_GRAD_ACCUM", "1")))
     # in-flight window: dispatch step N, wait on step N-k's loss.
     # 0 = synchronous (wait every step)

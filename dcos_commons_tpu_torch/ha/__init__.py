@@ -17,8 +17,8 @@ for the GPU fleet:
   as adopted / re-issued / lost at takeover.
 
 The chaos harness that kills a scheduler at every traceview
-span-boundary kind and asserts convergence lives in the JAX
-package's ``testing/chaos.py`` (not in the port yet).
+span-boundary kind and asserts convergence is the port's
+``testing/chaos.py``.
 
 Port of ``dcos_commons_tpu/ha/__init__.py``, line for line but the
 imports.

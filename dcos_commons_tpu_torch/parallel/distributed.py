@@ -44,7 +44,9 @@ def contract_from_env(env: Optional[Mapping[str, str]] = None) -> dict:
         "coordinator": env.get("COORDINATOR_ADDRESS", ""),
         "worker_id": int(env.get("TPU_WORKER_ID", "0") or 0),
         "worker_count": int(env.get("TPU_WORKER_COUNT", "1") or 1),
-        # 0 is the "probe the local runtime" sentinel, not a chip count
+        # 0 is the "probe the local runtime" sentinel, not a chip
+        # count; options.json's 4 only applies to rendered deploys
+        # sdklint: disable=config-default-drift — autodetect sentinel
         "chips_per_host": int(env.get("TPU_CHIPS_PER_HOST", "0") or 0),
         "topology": env.get("TPU_TOPOLOGY", ""),
         "generation": env.get("TPU_GENERATION", ""),

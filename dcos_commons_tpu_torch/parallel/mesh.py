@@ -217,7 +217,9 @@ def derive(env: Dict[str, str], n_devices: Optional[int] = None) -> MeshSpec:
     never asked for.  With no topology declared (ad-hoc envs, local
     dryruns) the fallback stays graceful.
     """
-    # 0 is the "probe the local runtime" sentinel, not a chip count
+    # 0 is the "probe the local runtime" sentinel, not a chip count;
+    # options.json's 4 only applies to rendered deploys
+    # sdklint: disable=config-default-drift — autodetect sentinel
     chips_per_host = int(env.get("TPU_CHIPS_PER_HOST", "0") or 0)
     n_slices = int(env.get("TPU_NUM_SLICES", "1") or 1)
     topology = env.get("TPU_TOPOLOGY", "")

@@ -9,8 +9,9 @@ rendering, YAMLToInternalMappers.java, 805 LoC).
 GPU port: the resource vocabulary has a pod-level ``gpu:`` block
 ({generation, chips_per_host, topology, ...}, :class:`GpuSpec`) where the
 JAX package has its ``tpu:`` block, and pods keep ``gang: true`` for
-gang-wide scheduling.  The offer side (the inventory, the NVLink node as
-the placement unit, admission, the launch path) is not ported yet.
+gang-wide scheduling.  The offer side reads it: the inventory and the
+NVLink node as the placement unit (``offer/``), admission
+(``multi/``), and the launch path's card env (``offer/evaluate.py``).
 """
 
 from dcos_commons_tpu_torch.specification.specs import (

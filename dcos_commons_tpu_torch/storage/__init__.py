@@ -8,8 +8,9 @@ cache), curator/CuratorPersister.java:43-110 (ZooKeeper impl with
 atomic multi-op transactions).
 
 The WAL's bytes are the JAX package's: a directory written by either
-package reads back in the other.  The remote persister and replication
-(``storage/remote.py``, ``storage/replication.py``) are not ported.
+package reads back in the other.  The remote persister, the state
+server and its hot standbys are ``storage/remote.py`` and
+``storage/replication.py``.
 """
 
 from dcos_commons_tpu_torch.storage.persister import (

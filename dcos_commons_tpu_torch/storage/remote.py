@@ -154,6 +154,9 @@ class StateServer:
                 pass
 
             def _reply(self, code: int, body: dict) -> None:
+                # a copy: the body may be shared (a 401 replies with
+                # security/auth.py's module-level UNAUTHORIZED)
+                body = dict(body)
                 body.setdefault("epoch", server._epoch)
                 body.setdefault("role", server._role)
                 payload = json.dumps(body).encode("utf-8")

@@ -484,8 +484,11 @@ class ChaosHarness:
                 # the agent to re-send task state, so a status consumed
                 # but killed before its store write is re-delivered
                 # (span-kind kills never die mid-status, so ``run``
-                # does not need this).
-                self._acked.clear()
+                # does not need this).  The fake agent's re-send is
+                # this harness's acks; a LocalProcessAgent re-arms its
+                # own on the successor's reconcile().
+                if not self.local_mode:
+                    self._acked.clear()
                 report.incarnations += 1
                 continue
             report.cycles += 1

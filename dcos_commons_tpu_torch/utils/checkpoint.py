@@ -387,9 +387,11 @@ class AsyncCheckpointer:
         self.incarnation = incarnation
         self.errors: List[str] = []
         self.saved: List[str] = []
-        # only the writer thread latches the fence, monotonic
-        # False -> True, so the caller reads it without a lock
+        # latched False -> True by the writer thread (a stale save) or
+        # by the caller (the gang's broadcast fence); both writes hold
+        # the lock, the caller reads it without one
         self.fenced = False
+        self._fence_lock = threading.Lock()
         self._queue: "queue.Queue" = queue.Queue(maxsize=max(1, max_pending))
         self._thread = threading.Thread(
             target=self._drain, name="async-ckpt", daemon=True
@@ -401,7 +403,8 @@ class AsyncCheckpointer:
         returns as soon as the copies are ENQUEUED."""
         if self.mesh is not None and self.mesh.spec.total > 1:
             if broadcast_int(int(self.fenced), self.mesh):
-                self.fenced = True
+                with self._fence_lock:
+                    self.fenced = True
                 return
         elif self.fenced:
             return
@@ -425,7 +428,8 @@ class AsyncCheckpointer:
                         incarnation=self.incarnation,
                     ))
                 except StaleWriterError as e:
-                    self.fenced = True
+                    with self._fence_lock:
+                        self.fenced = True
                     self.errors.append(str(e))
                 except Exception as e:  # noqa: BLE001 — a failed save
                     # (full disk, NFS hiccup) must not kill the writer

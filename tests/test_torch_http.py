@@ -41,6 +41,7 @@ import dcos_commons_tpu.trace.span as j_span
 from dcos_commons_tpu import http as j_http
 from dcos_commons_tpu import testing as j_testing
 from dcos_commons_tpu.http import server as j_server
+from dcos_commons_tpu.security import auth as j_auth
 import dcos_commons_tpu_torch.debug.trackers as t_trackers
 import dcos_commons_tpu_torch.metrics.registry as t_registry
 import dcos_commons_tpu_torch.trace.recorder as t_recorder
@@ -48,6 +49,7 @@ import dcos_commons_tpu_torch.trace.span as t_span
 from dcos_commons_tpu_torch import http as t_http
 from dcos_commons_tpu_torch import testing as t_testing
 from dcos_commons_tpu_torch.http import server as t_server
+from dcos_commons_tpu_torch.security import auth as t_auth
 from test_torch_plan import PinnedUuid
 from test_torch_scheduler import designed, pinned  # noqa: F401
 
@@ -193,8 +195,13 @@ def restart_ids(monkeypatch):
 @pytest.fixture
 def twins(pinned, monkeypatch):
     """Both packages' servers over deployed twin schedulers, every clock
-    frozen and the ids pinned."""
+    frozen and the ids pinned.  Both packages' 401 body is the module's
+    literal for the test: the reference's state server adds keys to its
+    shared body, so a test run before this one may have changed it."""
     freeze(monkeypatch, pinned)
+    for auth in (j_auth, t_auth):
+        monkeypatch.setattr(auth, "UNAUTHORIZED", (
+            401, {"message": "missing or invalid bearer token"}))
     made = []
 
     def make(token=""):
@@ -344,6 +351,31 @@ def test_bearer_token_is_enforced_the_same_way(twins):
     assert both(pair, "POST", "/v1/pod/web-0/restart", token="")[0] == 401
     assert both(pair, "GET", "/v1/health", token="")[0] == 200
     assert both(pair, "GET", "/v1/plans")[0] == 200
+
+
+def test_state_server_401_leaves_the_api_401_body_alone(twins):
+    """In one process the port's state server answers a 401 (its reply
+    adds its epoch and role), then the port's API answers one: the
+    API's body is still ``UNAUTHORIZED``'s, and so is the module's."""
+    from dcos_commons_tpu_torch.storage.persister import MemPersister
+    from dcos_commons_tpu_torch.storage.remote import StateServer
+
+    literal = {"message": "missing or invalid bearer token"}
+    state = StateServer(MemPersister(), auth_token=TOKEN).start()
+    try:
+        req = urllib.request.Request(state.url + "/v1/repl/status",
+                                     method="POST", data=b"{}")
+        with pytest.raises(urllib.error.HTTPError) as denied:
+            urllib.request.urlopen(req, timeout=30)
+        assert denied.value.code == 401
+        body = json.loads(denied.value.read().decode("utf-8"))
+        assert set(body) == {"message", "epoch", "role"}
+    finally:
+        state.stop()
+    assert t_auth.UNAUTHORIZED == (401, literal)
+    port = twins(TOKEN)[1]
+    assert port.call("GET", "/v1/plans", token="") == (401, literal)
+    assert port.call("GET", "/v1/plans", token="wrong") == (401, literal)
 
 
 def test_debug_trace_formats_match_through_the_exporters(twins):

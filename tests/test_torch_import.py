@@ -188,6 +188,11 @@ def test_every_port_module_imports_without_jax():
         "dcos_commons_tpu_torch.multi.store",
         "dcos_commons_tpu_torch.multi.admission",
         "dcos_commons_tpu_torch.multi.scheduler",
+        "dcos_commons_tpu_torch.analysis.racecheck",
+        "dcos_commons_tpu_torch.analysis.lockcheck",
+        "dcos_commons_tpu_torch.analysis.spmdcheck",
+        "dcos_commons_tpu_torch.analysis.configcheck",
+        "dcos_commons_tpu_torch.entry",
     } <= set(mods)
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT, REPO, *mods],
@@ -234,6 +239,7 @@ def test_no_source_imports_triton(path):
 
 def test_entry_points_default_to_the_card():
     from dcos_commons_tpu_torch.device import resolve_device
+    from dcos_commons_tpu_torch.entry import entry
     from dcos_commons_tpu_torch.frameworks.serve_gang_worker import (
         build_rank,
     )
@@ -265,6 +271,7 @@ def test_entry_points_default_to_the_card():
         lambda: build_server({"VOCAB": "16"}, ready_file=""),
         lambda: build_rank({"VOCAB": "16"}, ready_file=""),
         lambda: train({"VOCAB": "16", "TRAIN_STEPS": "1"}),
+        lambda: entry(),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

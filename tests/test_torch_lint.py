@@ -100,19 +100,36 @@ def test_rule_fixture_twins(name, tmp_path, monkeypatch):
 
 
 def test_every_fixture_test_of_the_reference_gate_is_twinned():
-    """A rule test added to the reference gate shows up here."""
+    """A rule test added to the reference gate shows up here, for every
+    analyzer: lint, dur, spmd, config and the lockcheck cases."""
     import ast
     import inspect
 
+    from test_torch_configcheck import (
+        CONFIG_FIXTURE_TESTS,
+        CONFIG_FIXTURE_TESTS_COVERED,
+    )
+    from test_torch_durcheck import DUR_FIXTURE_TESTS
+    from test_torch_racecheck import LOCKCHECK_TESTS
+    from test_torch_spmdcheck import SPMD_FIXTURE_TESTS
+
     tree = ast.parse(inspect.getsource(gate))
-    users = {
-        node.name for node in tree.body
-        if isinstance(node, ast.FunctionDef)
-        and node.name.startswith("test_")
-        and any(isinstance(n, ast.Name) and n.id == "_lint_fixture"
-                for n in ast.walk(node))
-    }
-    assert users == set(RULE_FIXTURE_TESTS)
+
+    def users(fixture):
+        return {
+            node.name for node in tree.body
+            if isinstance(node, ast.FunctionDef)
+            and node.name.startswith("test_")
+            and any(isinstance(n, ast.Name) and n.id == fixture
+                    for n in ast.walk(node))
+        }
+
+    assert users("_lint_fixture") == set(RULE_FIXTURE_TESTS)
+    assert users("_dur_fixture") == set(DUR_FIXTURE_TESTS)
+    assert users("_spmd_fixture") == set(SPMD_FIXTURE_TESTS)
+    assert users("_config_fixture") == set(CONFIG_FIXTURE_TESTS) | set(
+        CONFIG_FIXTURE_TESTS_COVERED)
+    assert users("lockcheck") == set(LOCKCHECK_TESTS)
 
 
 def test_rule_catalogs_are_the_same_rules():
@@ -251,10 +268,12 @@ def test_cli_all_exits_zero_on_the_port_tree(capsys):
                  "--plan-max-states", "800"])
     doc = json.loads(capsys.readouterr().out)
     assert rc == 0 and doc["exit_code"] == 0
-    assert set(doc) == {"lint", "specs", "plan", "shard", "dur",
-                        "exit_code"}
-    for name in ("lint", "specs", "shard", "dur"):
+    assert set(doc) == {"lint", "specs", "spmd", "plan", "shard", "race",
+                        "config", "dur", "exit_code"}
+    for name in ("lint", "specs", "spmd", "shard", "race", "config", "dur"):
         assert doc[name]["findings"] == [], name
+    assert doc["race"]["shared_attrs"] > 0 and doc["race"]["roles"] > 0
+    assert doc["config"]["env_vars"] >= 100 and doc["config"]["flows"] >= 30
     assert doc["plan"]["violations"] == []
     assert doc["plan"]["states_explored"] >= 800
     assert doc["dur"]["persistence_points"] > 50
@@ -262,7 +281,8 @@ def test_cli_all_exits_zero_on_the_port_tree(capsys):
     # no command is `all`
     assert t_main(["--root", REPO, "--plan-max-states", "50"]) == 0
     out = capsys.readouterr().out
-    for name in ("lint:", "specs:", "plan:", "shard:", "dur:"):
+    for name in ("lint:", "specs:", "spmd:", "plan:", "shard:", "race:",
+                 "config:", "dur:"):
         assert name in out
 
 
@@ -278,11 +298,17 @@ def test_cli_flag_spelling_and_plan(capsys):
 
 @pytest.mark.parametrize("command", ["spmd", "race", "config"])
 def test_cli_analyzers_not_ported_exit_two(command, capsys):
-    assert t_main([command, "--root", REPO]) == 2
+    """``spmd``, ``race`` and ``config`` run on the port's tree, alone
+    and beside another analyzer, and exit 0 with no finding."""
+    assert t_main([command, "--root", REPO]) == 0
     captured = capsys.readouterr()
-    assert "not in the port yet (slice 16)" in captured.err
-    assert captured.out == ""
-    assert t_main(["--lint", f"--{command}", "--root", REPO]) == 2
+    assert captured.err == ""
+    assert f"{command}: " in captured.out
+    assert " 0 finding(s), 0 baselined" in captured.out
+    assert "lint:" not in captured.out
+    assert t_main(["--lint", f"--{command}", "--root", REPO]) == 0
+    out = capsys.readouterr().out
+    assert "lint:" in out and f"{command}:" in out
 
 
 def test_cli_catalog_lists_every_rule(capsys):
@@ -296,6 +322,18 @@ def test_cli_catalog_lists_every_rule(capsys):
         assert rule.id in out
     assert "shard-replicated-giant" in out
     assert shardcheck.shard_rule_catalog() in out
+    from dcos_commons_tpu_torch.analysis import (
+        configcheck,
+        racecheck,
+        spmdcheck,
+    )
+
+    for rule in spmdcheck.all_spmd_rules():
+        assert rule.id in out
+    for rule_id in racecheck._RULE_DOCS:
+        assert rule_id in out
+    for rule_id, _ in configcheck.CONFIG_RULES:
+        assert rule_id in out
 
 
 def test_cli_update_baseline_ownership(tmp_path, capsys):
@@ -334,4 +372,5 @@ def test_top_level_analyze_runs_the_analysis_cli(capsys):
 
     assert main(["analyze", "lint", "--root", REPO]) == 0
     assert "lint: " in capsys.readouterr().out
-    assert main(["analyze", "race"]) == 2
+    assert main(["analyze", "race"]) == 0
+    assert "race: " in capsys.readouterr().out

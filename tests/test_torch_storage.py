@@ -2,7 +2,7 @@
 JAX package's, on the CPU.
 
 The cases of tests/test_storage.py run on the port's persisters (the
-remote persister is not ported: its cases stay with the JAX package),
+remote persister's run in tests/test_torch_state_server.py),
 the torn-tail probe appends garbage to ``wal.log`` and committed
 records survive, and a ``FileWalPersister`` directory holding a
 ``StateStore`` and a ``ReservationLedger`` written by either package
