@@ -71,7 +71,14 @@ CUDA card).  Phases, each fatal on failure:
    one-process step on the card (bf16: the loss within 1e-2; f32 at 2
    layers and seq 256, TF32 off: the loss within 1e-5, the first
    step's gradients and the params as ``compare_f32`` says); K2-K4 launch on each rank's rows and h/tp
-   heads; each step's time split into collectives and compute.
+   heads; each step's time split into collectives and compute.  Then
+   each layout's same steps with overlap on (``make_train_step(...,
+   overlap=True)``, ``parallel/overlap.py``) from the same init: f32
+   losses and params equal to overlap off bit for bit, bf16 losses
+   within 1e-2; the step ms on and off; buckets launched before the
+   backward's last gradient.  Where the data axes hold one rank (tp2,
+   the MoE's), no gradient is reduced and ``overlap=True`` must raise
+   ``OverlapError``.
 13. The serving gang (``frameworks/serve_gang_worker.py`` ``build_rank``:
    the whole gang one tp axis, rank 0 driving the others with one tick
    broadcast each, over gloo).  (a) Two processes on the one card over
@@ -105,6 +112,9 @@ CUDA card).  Phases, each fatal on failure:
    microbatches, 2 steps), the loss within 1e-2 of one process; step
    ms, tokens/s and the split into collectives and compute.  Ulysses
    ranks launch K2-K4 at [8, 4096, 4096, 128], the ring none of them.
+   The ring runs with overlap off and on (each K/V hop posted before
+   its block), and the two are held against each other in the run (f32
+   bit for bit, bf16 within 1e-2) with both steps logged.
 16. The MNIST job (BASELINE.json config 3): (a)
    ``dcos_commons_tpu_torch/frameworks/train_mnist.py`` as a subprocess
    with no ``TORCH_DEVICE``, as the scheduler launches it: exit 0, a
@@ -295,14 +305,22 @@ CUDA card).  Phases, each fatal on failure:
 
 ``python3 chip_smoke.py --nccl-gang`` (a host with 2 or 4 cards) runs
 phase 12 over NCCL instead, rank r on card r (four cards: dp2 x tp2,
-fsdp2 x tp2, dcn2 x tp2, dp4 and the MoE under ep2 x tp2), then the
-gang train worker on every card, from scratch and resumed, then phase
+fsdp2 x tp2, dcn2 x tp2, dp4 and the MoE under ep2 x tp2), overlap off
+and on, each with its exposed collective ms (``exposed_collectives``:
+the NCCL kernels' device time that no other kernel covers, from a
+``torch.profiler`` trace, on the rank most exposed) and the median of
+``PAIRED_STEPS`` steps of each, taken in turn, then the gang train
+worker on every card,
+from scratch and resumed with ``TRAIN_XLA_OVERLAP=1``, and from
+scratch with the default (overlap off in the port's worker), then phase
 13(b)'s serving gang at tp2 or tp4 over NCCL, one rank a card, then
 long context over NCCL: ``collective_bandwidth`` (psum, all_gather,
-reduce_scatter, the ring hop; 64 MB a rank) over every card and
-``single_chip_rooflines`` on card 0, then phase 15(b)'s layouts (two
-cards: Ulysses and ring sp2, pp2; four: Ulysses and ring sp4 at a
-context of 8192, Ulysses sp2 x tp2, pp2 x dp2); nothing else but 17(c):
+reduce_scatter, the ring hop; 64 MB a rank; the median and range of 5
+repeats) over every card and ``single_chip_rooflines`` on card 0, then
+phase 15(b)'s layouts (two cards: Ulysses and ring sp2, pp2; four:
+Ulysses and ring sp4 at a context of 8192, Ulysses sp2 x tp2, each
+overlap off and on, with the exposed collective ms, and pp2 x dp2,
+whose pipeline has no overlapped step); nothing else but 17(c):
 the gang train worker's steplog beside shardcheck's NVLink wire model
 of its dp layout (``stepcompare``, reported, not gated), and, on four
 cards, 18(b): the trainer placed at 4 cards (topology 2x2) on the
@@ -1692,8 +1710,9 @@ def compare_f32(gang, ref, gang_grads, grads):
 def time_gang_step(step, params, tokens, targets):
     """One step of every rank timed on the host clock, then one more
     with each collective bracketed by device synchronisations
-    (``timed_collectives``): (step ms, timed ms, the collectives'
-    stats: ``seconds``, ``calls``)."""
+    (``timed_collectives``; an overlapped step makes none and reports
+    its waits): (step ms, timed ms, the collectives' stats:
+    ``seconds``, ``calls``, ``wait_seconds``, ``starts``)."""
     import torch.distributed as dist
 
     from dcos_commons_tpu_torch.parallel.sharding import timed_collectives
@@ -1710,6 +1729,76 @@ def time_gang_step(step, params, tokens, targets):
         torch.cuda.synchronize()
         timed_ms = (time.perf_counter() - t0) * 1e3
     return step_ms, timed_ms, coll
+
+
+def _merged(spans):
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def exposed_collectives(run, tag):
+    """Two ``run()``s under ``torch.profiler`` (CUDA activity), the
+    first a warm-up it discards: (device ms of the NCCL kernels in the
+    second, and of those the ms during which no other kernel ran: the
+    collectives' exposed time)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+    path = os.path.join(ROOT, "build", "smoke",
+                        f"exposed-{tag}-{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    nccl, compute = [], []
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            (nccl if "nccl" in e["name"].lower() else compute).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    nccl, compute = _merged(nccl), _merged(compute)
+    total = sum(b - a for a, b in nccl)
+    covered, j = 0.0, 0
+    for a, b in nccl:
+        while j < len(compute) and compute[j][1] <= a:
+            j += 1
+        k = j
+        while k < len(compute) and compute[k][0] < b:
+            covered += min(b, compute[k][1]) - max(a, compute[k][0])
+            k += 1
+    return total / 1e3, (total - covered) / 1e3
+
+
+PAIRED_STEPS = 5  # --nccl-gang: off and on steps timed in turn
+
+
+def paired_step_ms(runs, tokens, targets, n=PAIRED_STEPS):
+    """The median ms of ``n`` steps of each ``(step, params)`` in
+    ``runs``, taken in turn (each step between barriers, on the host
+    clock after the card is done)."""
+    import torch.distributed as dist
+
+    times = [[] for _ in runs]
+    for _ in range(n):
+        for k, (step, params) in enumerate(runs):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(params, tokens, targets)
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return [float(np.median(t)) for t in times]
 
 
 def judge_f32(r0):
@@ -1739,10 +1828,11 @@ def gang_rank_main(rank, world, backend, init_method, cases, results):
         import torch.distributed as dist
 
         from dcos_commons_tpu_torch.models.transformer import (
-            adamw, init_params, leaf_rules, make_train_step, shard_params,
-            unshard_params,
+            adamw, init_params, leaf_rules, make_train_step,
+            overlap_mechanisms, shard_params, unshard_params,
         )
         from dcos_commons_tpu_torch.parallel.distributed import init_gang
+        from dcos_commons_tpu_torch.parallel.overlap import OverlapError
         from dcos_commons_tpu_torch.parallel.mesh import (
             BATCH_AXES, MeshSpec, make_mesh,
         )
@@ -1752,7 +1842,8 @@ def gang_rank_main(rank, world, backend, init_method, cases, results):
         torch.cuda.set_device(rank if backend == "nccl" else 0)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        init_gang(init_method, world, rank, backend, timeout_s=300)
+        init_gang(init_method, world, rank, backend, timeout_s=300,
+                  local_rank=rank)
         logs = install_shape_logs()
         report = []
         for label, extra, fields, dtype, layers, seq in cases:
@@ -1792,6 +1883,11 @@ def gang_rank_main(rank, world, backend, init_method, cases, results):
             shapes = {k: sorted(s.shapes, key=str) for k, s in logs.items()}
             step_ms, timed_ms, coll = time_gang_step(step, params, tokens,
                                                      targets)
+            exposed = {}
+            if backend == "nccl":
+                exposed["off"] = exposed_collectives(
+                    lambda: step(params, tokens, targets), "off")
+            off_run = (step, params)
             del params, step
             entry = dict(label=label, dtype=str(dtype), layers=layers,
                          seq=seq, rank=rank, losses=losses,
@@ -1799,6 +1895,52 @@ def gang_rank_main(rank, world, backend, init_method, cases, results):
                          timed_ms=timed_ms,
                          collective_ms=coll["seconds"] * 1e3,
                          collectives=coll["calls"])
+            if not overlap_mechanisms(config, mesh):
+                # the data axes hold one rank: no gradient is reduced,
+                # nothing overlaps, and asking for it raises
+                try:
+                    make_train_step(config, None, mesh=mesh, overlap=True)
+                except OverlapError:
+                    entry.update(overlap=[], exposed=exposed)
+                else:
+                    raise AssertionError(f"{label}: overlap=True did not "
+                                         "raise where nothing can engage")
+                del off_run
+            else:
+                # the same steps with overlap on, from the same init
+                params = shard_params(
+                    init_params(config, seed=0, device="cuda"), config, mesh)
+                step = make_train_step(config, adamw(params, LR), mesh=mesh,
+                                       overlap=True)
+                on_losses = [float(step(params, tokens, targets))
+                             for _ in range(GANG_STEPS)]
+                stats = dict(step.stats)
+                on_full = tree_leaves(unshard_params(params, config, mesh))
+                on_ms, on_timed_ms, on_coll = time_gang_step(
+                    step, params, tokens, targets)
+                paired = None
+                if backend == "nccl":
+                    exposed["on"] = exposed_collectives(
+                        lambda: step(params, tokens, targets), "on")
+                    # off and on in turn, so drift falls on both alike
+                    paired = paired_step_ms(
+                        [off_run, (step, params)], tokens, targets)
+                del off_run
+                entry.update(
+                    paired=paired, overlap=list(step.overlap),
+                    on_losses=on_losses, on_stats=stats, on_step_ms=on_ms,
+                    on_timed_ms=on_timed_ms,
+                    on_wait_ms=on_coll["wait_seconds"] * 1e3,
+                    on_starts=on_coll["starts"], exposed=exposed,
+                    on_equal=on_losses == losses and all(
+                        torch.equal(a, b)
+                        for a, b in zip(on_full, fulls[-1])),
+                    on_loss_rel=max(abs(a - b) / abs(b)
+                                    for a, b in zip(on_losses, losses)),
+                    on_param_diff=max(
+                        (a.float() - b.float()).abs().max().item()
+                        for a, b in zip(on_full, fulls[-1])))
+                del params, step, on_full
             if rank == 0:
                 ref_losses, ref, (after, grads) = one_process_steps(
                     config, GANG_STEPS, GANG_BATCH, trace=f32)
@@ -1888,7 +2030,67 @@ def phase_gang(tag, world, backend, layouts, deadline_s):
         if not ok:
             raise AssertionError(f"{tag} {label}: gang and one process "
                                  "differ beyond the tolerance")
+        judge_overlap(tag, label, f32, runs, world)
     return launches, shapes
+
+
+def judge_overlap(tag, label, f32, runs, world):
+    """Log a layout's steps with overlap on against off and fail where
+    they differ beyond the tolerance or the reductions did not launch
+    inside the backward: over two ranks every sum has one order, so f32
+    is bit for bit (bf16 within ``GANG_BF16_LOSS_RTOL``); over more, a
+    bucket's sum may take another order, and the loss is held to 1e-6
+    relative in f32."""
+    r0 = runs[0]
+    exposed = ""
+    for lap in ("off", "on"):
+        if lap in r0["exposed"]:
+            # the rank whose collectives stood most exposed
+            nccl, bare = max((r["exposed"][lap] for r in runs),
+                             key=lambda pair: pair[1])
+            exposed += (f"; {lap}: NCCL kernels {nccl:.2f} ms, exposed "
+                        f"{bare:.2f} ms")
+    if not r0["overlap"]:
+        log(f"{tag} {label} {'f32' if f32 else 'bf16'}: overlap not "
+            "engaged (the data axes hold one rank: overlap=True raised "
+            f"OverlapError); step {max(r['step_ms'] for r in runs):.1f} "
+            f"ms off{exposed}")
+        return
+    for r in runs:
+        if r["on_losses"] != r0["on_losses"]:
+            raise AssertionError(f"{tag} {label}: the ranks' overlapped "
+                                 "losses differ")
+    if f32 and world == 2:
+        ok, rule = r0["on_equal"], "f32 over 2 ranks: bit for bit"
+    elif f32:
+        ok, rule = r0["on_loss_rel"] <= 1e-6, "f32: loss 1e-6 rel"
+    else:
+        ok = r0["on_loss_rel"] <= GANG_BF16_LOSS_RTOL
+        rule = f"bf16: loss {GANG_BF16_LOSS_RTOL} rel"
+    stats = r0["on_stats"]
+    # an engaged step reduces gradients over a data axis of > 1 rank
+    engaged = stats["buckets"] >= 1 and stats["launched_early"] >= 1
+    if r0["paired"] is not None:
+        off_ms, on_ms = (max(r["paired"][k] for r in runs) for k in (0, 1))
+        exposed += (f"; {PAIRED_STEPS} steps off and on in turn, median "
+                    f"{off_ms:.1f} ms off, {on_ms:.1f} ms on "
+                    f"({on_ms / off_ms:.3f}x)")
+    log(f"{tag} {label} {'f32' if f32 else 'bf16'} overlap "
+        f"{'+'.join(r0['overlap'])}: losses {r0['on_losses']} vs off "
+        f"{r0['losses']} ({'equal' if r0['on_equal'] else 'rel %.3e, params max diff %.3e' % (r0['on_loss_rel'], r0['on_param_diff'])}; "
+        f"{rule}); step {max(r['on_step_ms'] for r in runs):.1f} ms on, "
+        f"{max(r['step_ms'] for r in runs):.1f} ms off; waits "
+        f"{max(r['on_wait_ms'] for r in runs):.1f} ms of the on step, "
+        f"{r0['on_starts']} launches; buckets {stats['buckets']}, "
+        f"launched before the backward's last gradient "
+        f"{stats['launched_early']}, gathers a layer ahead "
+        f"{stats['prefetched']}{exposed}")
+    if not ok:
+        raise AssertionError(f"{tag} {label}: overlap on and off differ "
+                             "beyond the tolerance")
+    if not engaged:
+        raise AssertionError(f"{tag} {label}: no gradient bucket was "
+                             f"launched inside the backward: {stats}")
 
 
 # -- phases 13-14: the serving gang and the router --------------------------
@@ -2377,19 +2579,25 @@ def phase_gang_serving(tag, world, backend, sandbox, router_phase,
 
 # phase 15's layouts: (label, "ring", "ulysses" or "pp", MeshSpec fields,
 # the bf16 global batch, the pipeline's microbatches)
+# (label, recipe, MeshSpec fields, global batch, microbatches, overlap)
 LONG_LAYOUTS = (
-    ("ulysses sp2", "ulysses", {"sp": 2}, 1, 0),
-    ("ring sp2", "ring", {"sp": 2}, 1, 0),
-    ("pp2", "pp", {"pp": 2}, 4, 4),
+    ("ulysses sp2", "ulysses", {"sp": 2}, 1, 0, False),
+    ("ring sp2 overlap off", "ring", {"sp": 2}, 1, 0, False),
+    ("ring sp2 overlap on", "ring", {"sp": 2}, 1, 0, True),
+    ("pp2", "pp", {"pp": 2}, 4, 4, False),
 )
 # --nccl-gang on four cards: a context of 8192 over sp4, Ulysses under
-# tp, and the dryrun's pp x dp
-NCCL4_LONG_LAYOUTS = (
-    ("ulysses sp4", "ulysses", {"sp": 4}, 1, 0),
-    ("ring sp4", "ring", {"sp": 4}, 1, 0),
-    ("ulysses sp2xtp2", "ulysses", {"sp": 2, "tp": 2}, 1, 0),
-    ("pp2xdp2", "pp", {"pp": 2, "dp": 2}, 4, 2),
-)
+# tp, each overlap off and on, and the dryrun's pp x dp (the pipeline
+# has no overlapped step)
+NCCL4_LONG_LAYOUTS = tuple(
+    (f"{label} overlap {'on' if lap else 'off'}", kind, fields, batch,
+     micro, lap)
+    for label, kind, fields, batch, micro in (
+        ("ulysses sp4", "ulysses", {"sp": 4}, 1, 0),
+        ("ring sp4", "ring", {"sp": 4}, 1, 0),
+        ("ulysses sp2xtp2", "ulysses", {"sp": 2, "tp": 2}, 1, 0),
+        ("pp2xdp2", "pp", {"pp": 2, "dp": 2}, 4, 2))
+    for lap in ((False,) if kind == "pp" else (False, True)))
 LONG_SEQ = 2048           # each rank's positions in bf16 (sp2: 4096 in all)
 LONG_STEPS = 3            # bf16 sp steps; the pipeline and f32 take 2
 # 15(a): f32 (TF32 off) at the flagship's width, 2 layers, 512 positions
@@ -2400,16 +2608,17 @@ LONG_F32 = dict(layers=2, seq=512, batch=2, micro=2)
 def long_cases(layouts, dtype):
     """The rank-side cases of ``layouts`` in ``dtype``: (label, kind,
     MeshSpec fields, dtype, layers, positions a rank, global batch,
-    microbatches, steps); bf16 is 15(b)'s flagship, f32 15(a)'s."""
+    microbatches, steps, overlap); bf16 is 15(b)'s flagship, f32
+    15(a)'s."""
     if dtype == torch.float32:
         f = LONG_F32
         return [(label, kind, fields, dtype, f["layers"], f["seq"],
-                 f["batch"], f["micro"], GANG_STEPS)
-                for label, kind, fields, _, _ in layouts]
+                 f["batch"], f["micro"], GANG_STEPS, lap)
+                for label, kind, fields, _, _, lap in layouts]
     return [(label, kind, fields, dtype, int(TRAIN_ENV["N_LAYERS"]),
              LONG_SEQ, batch, micro,
-             GANG_STEPS if kind == "pp" else LONG_STEPS)
-            for label, kind, fields, batch, micro in layouts]
+             GANG_STEPS if kind == "pp" else LONG_STEPS, lap)
+            for label, kind, fields, batch, micro, lap in layouts]
 
 
 def long_config(kind, dtype, layers, seq):
@@ -2480,7 +2689,8 @@ def long_rank_main(rank, world, backend, init_method, cases, probe,
         torch.cuda.set_device(rank if backend == "nccl" else 0)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        init_gang(init_method, world, rank, backend, timeout_s=300)
+        init_gang(init_method, world, rank, backend, timeout_s=300,
+                  local_rank=rank)
         logs = install_shape_logs()
         report = {"cases": []}
         if probe:
@@ -2492,7 +2702,7 @@ def long_rank_main(rank, world, backend, init_method, cases, probe,
             dist.barrier()
         refs = {}
         for (label, kind, fields, dtype, layers, seq, batch, n_micro,
-             steps) in cases:
+             steps, lap) in cases:
             mesh = make_mesh(MeshSpec(**fields))
             sp = mesh.size(("sp",))
             config = long_config(kind, dtype, layers, seq * sp)
@@ -2513,7 +2723,8 @@ def long_rank_main(rank, world, backend, init_method, cases, probe,
                         p.grad = None
                     return loss
             else:
-                step = make_train_step(config, optimizer, mesh=mesh)
+                step = make_train_step(config, optimizer, mesh=mesh,
+                                       overlap=lap)
             applied = []
             if f32:
                 # the gradients each step applies, gathered to full size
@@ -2530,6 +2741,7 @@ def long_rank_main(rank, world, backend, init_method, cases, probe,
             tokens = tokens[rows, cols].contiguous()
             targets = targets[rows, cols].contiguous()
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             for shape_log in logs.values():
                 shape_log.reset()
             losses, fulls = [], []
@@ -2545,6 +2757,15 @@ def long_rank_main(rank, world, backend, init_method, cases, probe,
             shapes = {k: sorted(s.shapes, key=str) for k, s in logs.items()}
             step_ms, timed_ms, coll = time_gang_step(step, params, tokens,
                                                      targets)
+            exposed = median_ms = None
+            if backend == "nccl":
+                exposed = exposed_collectives(
+                    lambda: step(params, tokens, targets), "long")
+                median_ms = paired_step_ms([(step, params)], tokens,
+                                           targets)[0]
+            stats = dict(getattr(step, "stats", {}))
+            # this process's peak over the steps and their timing
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
             del params, step, optimizer
             torch.cuda.empty_cache()
             entry = dict(label=label, kind=kind, dtype=str(dtype),
@@ -2554,7 +2775,10 @@ def long_rank_main(rank, world, backend, init_method, cases, probe,
                          launches=launches, shapes=shapes, step_ms=step_ms,
                          timed_ms=timed_ms,
                          collective_ms=coll["seconds"] * 1e3,
-                         collectives=coll["calls"])
+                         collectives=coll["calls"], overlap=lap,
+                         wait_ms=coll["wait_seconds"] * 1e3, stats=stats,
+                         exposed=exposed, median_ms=median_ms,
+                         peak_gib=peak_gib)
             if rank == 0:
                 key = (str(dtype), layers, seq * sp, batch, steps)
                 if key not in refs:
@@ -2634,15 +2858,18 @@ def phase_long(tag, world, backend, cases, deadline_s, probe=False):
         bw = reports[0]["bandwidth"]
         log(f"{tag} collective_bandwidth over {world} ranks ({backend}, "
             f"{bw['payload_mb_per_chip']} MB a rank, {bw['iters']:.0f} "
-            "chained calls, bus GB/s a rank): " + ", ".join(
-                f"{k[:-len('_gbps_per_chip')]} {v:.1f}" for k, v in
-                bw.items() if k.endswith("_gbps_per_chip")))
+            "chained calls, bus GB/s a rank, the median [least, most] of "
+            "5 repeats): " + ", ".join(
+                f"{k[:-len('_gbps_per_chip')]} {v:.1f} "
+                f"[{bw[k + '_range'][0]:.1f}, {bw[k + '_range'][1]:.1f}]"
+                for k, v in bw.items() if k.endswith("_gbps_per_chip")))
         rl = reports[0]["rooflines"]
         log(f"{tag} single_chip_rooflines on card 0: HBM copy "
             f"{rl['hbm_copy_gbps']:.1f} GB/s, bf16 matmul "
             f"{rl['matmul_bf16_tflops']:.1f} TFLOP/s")
     launches = {n: 0 for n in ("K1", "K2", "K3", "K4")}
     shapes = {n: set() for n in launches}
+    laps = {}
     for runs in zip(*(reports[r]["cases"] for r in range(world))):
         r0 = runs[0]
         label, kind, f32 = (r0["label"], r0["kind"],
@@ -2691,6 +2918,29 @@ def phase_long(tag, world, backend, cases, deadline_s, probe=False):
         coll_ms = max(r["collective_ms"] for r in runs)
         timed_ms = max(r["timed_ms"] for r in runs)
         tokens = r0["batch"] * r0["context"]
+        if r0["overlap"]:
+            # an overlapped step is never synchronised around its
+            # collectives: its waits are what it reports
+            stats = r0["stats"]
+            split = (f"overlap on: waits {max(r['wait_ms'] for r in runs):.1f}"
+                     f" ms of a {timed_ms:.1f} ms step; buckets "
+                     f"{stats['buckets']}, launched before the backward's "
+                     f"last gradient {stats['launched_early']}")
+            if not (stats["buckets"] >= 1 and stats["launched_early"] >= 1):
+                raise AssertionError(f"{tag} {label}: no gradient bucket "
+                                     f"launched inside the backward: {stats}")
+        else:
+            split = (f"timed step {timed_ms:.1f} ms = collectives "
+                     f"{coll_ms:.1f} ms ({100 * coll_ms / timed_ms:.1f}%, "
+                     f"{r0['collectives']} calls) + compute "
+                     f"{timed_ms - coll_ms:.1f} ms")
+        if r0["exposed"] is not None:
+            nccl, bare = max((r["exposed"] for r in runs),
+                             key=lambda pair: pair[1])
+            split += (f"; NCCL kernels {nccl:.2f} ms, exposed {bare:.2f} ms "
+                      "(the rank most exposed); median of "
+                      f"{PAIRED_STEPS} steps "
+                      f"{max(r['median_ms'] for r in runs):.1f} ms")
         log(f"{tag} {label} {'f32' if f32 else 'bf16'} [{r0['layers']} "
             f"layers, batch {r0['batch']}, context {r0['context']}, "
             f"{r0['seq']} positions a rank"
@@ -2698,15 +2948,46 @@ def phase_long(tag, world, backend, cases, deadline_s, probe=False):
             + f"]: losses {r0['losses']} vs one process "
             f"{r0['ref_losses']} (rel {r0['loss_rel']:.3e}); {tol}; step "
             f"{step_ms:.1f} ms ({tokens / step_ms * 1e3:,.0f} tokens/s); "
-            f"timed step {timed_ms:.1f} ms = collectives {coll_ms:.1f} ms "
-            f"({100 * coll_ms / timed_ms:.1f}%, {r0['collectives']} calls) "
-            f"+ compute {timed_ms - coll_ms:.1f} ms; K2-K4 at "
+            f"{split}; peak {max(r['peak_gib'] for r in runs):.2f} GiB "
+            f"allocated a rank; K2-K4 at "
             f"{sorted(want_attn) or 'none'}; launches a rank "
             f"{r0['launches']}")
         if not ok:
             raise AssertionError(f"{tag} {label}: the gang and one process "
                                  "differ beyond the tolerance")
+        laps[label, f32] = (r0["losses"], step_ms,
+                            max(r["peak_gib"] for r in runs))
+    judge_long_overlap(tag, laps, world)
     return launches, shapes
+
+
+def judge_long_overlap(tag, laps, world):
+    """Each layout run with overlap off and on in this phase ({(label,
+    f32): (losses, step ms, peak GiB)}, labels ending in ``overlap
+    off`` and ``overlap on``): the on losses against the off losses of
+    this run, by ``judge_overlap``'s rule, and both steps logged."""
+    for (label, f32), (on, on_ms, on_gib) in laps.items():
+        base = label[:-len(" overlap on")]
+        if not label.endswith(" overlap on") or (
+                base + " overlap off", f32) not in laps:
+            continue
+        off, off_ms, off_gib = laps[base + " overlap off", f32]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(on, off))
+        if f32 and world == 2:
+            ok, rule = on == off, "f32 over 2 ranks: bit for bit"
+        elif f32:
+            ok, rule = rel <= 1e-6, "f32: loss 1e-6 rel"
+        else:
+            ok = rel <= GANG_BF16_LOSS_RTOL
+            rule = f"bf16: loss {GANG_BF16_LOSS_RTOL} rel"
+        log(f"{tag} {base} {'f32' if f32 else 'bf16'} overlap on against "
+            f"off in this run: losses {on} vs {off} "
+            f"({'equal' if on == off else f'rel {rel:.3e}'}; {rule}); step "
+            f"{on_ms:.1f} ms on, {off_ms:.1f} ms off ({on_ms / off_ms:.3f}x); "
+            f"peak {on_gib:.2f} GiB on, {off_gib:.2f} GiB off a rank")
+        if not ok:
+            raise AssertionError(f"{tag} {base}: overlap on and off differ "
+                                 "beyond the tolerance")
 
 
 # -- phase 16: the MNIST job --------------------------------------------------
@@ -5311,20 +5592,43 @@ def nccl_gang_main(kind, smi):
     watchdog.phase("12(c) gang train worker", 600)
     ckpt = os.path.join(ROOT, "build", "smoke", "gang_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
+    # the scheduler's contract for an accelerator task; the port's worker
+    # overlaps only with TRAIN_XLA_OVERLAP=1 (frameworks/train_worker.py)
     env = dict(TRAIN_ENV, N_LAYERS="2", CHECKPOINT_DIR=ckpt,
+               TPU_GENERATION="h100",
                SANDBOX=os.path.join(ROOT, "build", "smoke"))
     steplog = os.path.join(env["SANDBOX"], "steplog.jsonl")
     if os.path.exists(steplog):
         os.remove(steplog)
-    for steps, start in ((2, 0), (3, 2)):
-        result = train_gang(dict(env, TRAIN_STEPS=str(steps)), n, log=log,
-                            deadline_s=540)
+    runs = {}
+    for label, steps, start, extra in (
+            ("TRAIN_XLA_OVERLAP=1", 2, 0, {"TRAIN_XLA_OVERLAP": "1"}),
+            ("TRAIN_XLA_OVERLAP=1", 3, 2, {"TRAIN_XLA_OVERLAP": "1"}),
+            ("the default (off)", 2, 0, {
+                "CHECKPOINT_DIR": ckpt + "_off",
+                "SANDBOX": os.path.join(ROOT, "build", "smoke", "off")})):
+        run_env = dict(env, TRAIN_STEPS=str(steps), **extra)
+        os.makedirs(run_env["SANDBOX"], exist_ok=True)
+        result = train_gang(run_env, n, log=log, deadline_s=540)
         if result.start != start or result.checkpoint_errors or not all(
                 np.isfinite(list(result.losses.values()))):
             raise AssertionError(f"gang train worker: {result}")
-        log(f"12(c) train worker, {n} ranks over NCCL, steps {start}.."
-            f"{steps - 1}: batch {result.batch}, losses {result.losses}")
-    shutil.rmtree(ckpt, ignore_errors=True)
+        log(f"12(c) train worker, {n} ranks over NCCL, {label}, steps "
+            f"{start}..{steps - 1}: batch {result.batch}, losses "
+            f"{result.losses}, {result.tokens_per_s:,.0f} tokens/s "
+            f"({result.seconds:.2f} s)")
+        runs.setdefault(label, result)
+    on, off = runs["TRAIN_XLA_OVERLAP=1"], runs["the default (off)"]
+    rel = max(abs(on.losses[s] - off.losses[s]) / abs(off.losses[s])
+              for s in off.losses)
+    log(f"12(c) train worker TRAIN_XLA_OVERLAP=1 against the default: "
+        f"losses {on.losses} / {off.losses} (rel {rel:.3e}, bf16 "
+        f"{GANG_BF16_LOSS_RTOL})")
+    if rel > GANG_BF16_LOSS_RTOL:
+        raise AssertionError("the gang worker's losses with overlap on and "
+                             "off differ beyond the tolerance")
+    for path in (ckpt, ckpt + "_off"):
+        shutil.rmtree(path, ignore_errors=True)
     gang_stepcompare(steplog, n, smi)
     # the serving gang at full width, one rank a card over NCCL
     watchdog.phase(f"12(c) tp{n} serving gang", 600)

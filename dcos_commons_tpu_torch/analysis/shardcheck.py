@@ -91,7 +91,8 @@ GENERATION_HBM_MB = {
 # bus bandwidth a rank (GB/s of 1e9 bytes) over NVLink for the cost
 # estimate: the psum of parallel/collectives.py over four NVIDIA H100
 # 80GB HBM3 cards at 700.00 W, 64 MB a rank (chip_smoke.py --nccl-gang;
-# the same run's ring hop read 151.2)
+# the same run's ring hop read 151.2).  Three later calls, each the
+# median of 5 repeats, read 227.9-236.9, every range holding 220.2
 NVLINK_GBPS = {"h100": 220.2}
 # cross-host data-center network (dcn axis collectives): an ASSUMED
 # 100 Gb/s link; no chip run has measured it

@@ -3,7 +3,10 @@
 
 The same env contract: ``TRAIN_STEPS``, ``CHECKPOINT_DIR``,
 ``CHECKPOINT_KEEP``, ``TRAIN_ASYNC_CKPT``, ``TRAIN_GRAD_ACCUM``,
-``TRAIN_INFLIGHT_STEPS``, ``DATA_DIR``, ``KEEPALIVE_S``, ``SANDBOX``
+``TRAIN_INFLIGHT_STEPS``, ``TRAIN_XLA_OVERLAP`` (unlike the
+reference's, off unless ``1`` or ``true``: a gang then overlaps its
+collectives with its compute; see ``parallel/overlap.py``),
+``DATA_DIR``, ``KEEPALIVE_S``, ``SANDBOX``
 (the steplog's directory), ``STEPLOG_BARRIER_PROBE``,
 ``TRAIN_ELASTIC_DP``, the model's ``VOCAB``/``D_MODEL``/``N_LAYERS``/
 ``N_HEADS``/``N_KV_HEADS``/``D_FF``/``SEQ_LEN``/``N_EXPERTS`` (> 0: the
@@ -97,6 +100,22 @@ def host_rows(mesh, worker_id: int, local_devices: int):
     return coords.index(mesh.index(BATCH_AXES)), len(coords)
 
 
+def overlap_from_env(env: Mapping[str, str]) -> List[str]:
+    """The collectives the worker's step overlaps with its compute:
+    ``enable_collective_overlap``'s (none where the reference adds no
+    XLA flag), but only where ``TRAIN_XLA_OVERLAP`` is ``1`` or
+    ``true``.  The port's default is off, where the reference's is on:
+    on four cards over NCCL the overlapped step showed no gain over the
+    synchronous one (PERF.md section 5)."""
+    from dcos_commons_tpu_torch.parallel.overlap import (
+        enable_collective_overlap,
+    )
+
+    if env.get("TRAIN_XLA_OVERLAP") not in ("1", "true"):
+        return []
+    return enable_collective_overlap(env)
+
+
 def train(env: Mapping[str, str],
           log: Callable[[str], None] = print,
           no_remat_layers: int = 0,
@@ -128,6 +147,7 @@ def train(env: Mapping[str, str],
         leaf_rules,
         load_train_state,
         make_train_step,
+        overlap_mechanisms,
         shard_params,
         train_state,
     )
@@ -170,6 +190,9 @@ def train(env: Mapping[str, str],
     world = contract["worker_count"] * local_devices
     if local_rank != 0:
         log = lambda msg: None  # noqa: E731 — a worker logs once
+    # the reference's first act
+    mechanisms = overlap_from_env(env)
+    log(f"collective overlap: {', '.join(mechanisms) or 'off'}")
     initialize_from_env(env, "nccl" if device.type == "cuda" else "gloo",
                         local_rank, local_devices, timeout_s, init_method)
     if contract["num_slices"] > 1:
@@ -244,8 +267,14 @@ def train(env: Mapping[str, str],
     # in-flight window: dispatch step N, wait on step N-k's loss.
     # 0 = synchronous (wait every step)
     inflight = max(0, int(env.get("TRAIN_INFLIGHT_STEPS", "2")))
-    step_fn = make_train_step(config, optimizer, mesh=mesh,
-                              grad_accum=grad_accum)
+    # a mesh whose data axes hold one rank reduces no gradient: there
+    # the step has nothing to overlap
+    step_fn = make_train_step(
+        config, optimizer, mesh=mesh, grad_accum=grad_accum,
+        overlap=bool(mechanisms and overlap_mechanisms(config, mesh)))
+    if mechanisms:
+        log(f"overlap engaged: {', '.join(step_fn.overlap) or 'none'} "
+            f"on {mesh.spec}")
     batch = max(2, 2 * world)
     # each rank splits its own rows into the microbatches, so the
     # batch must split evenly over the batch shards AND then into

@@ -48,10 +48,18 @@ averages the loss and the gradients over ``sp`` as over the batch
 axes.  Pipeline parallelism is ``pipeline_loss_fn`` (GPipe over ``pp``,
 ``parallel/pipeline.py``), as in the reference, whose
 ``make_train_step`` has no pipeline either.
+
+``make_train_step(..., overlap=True)`` overlaps the sharded step's
+collectives with its compute, as the reference's XLA flags have its
+compiler do (``parallel/overlap.py``): every leaf is aliased by one
+leaf a layer, whose gradient hook launches its bucket's reduction;
+``_ShardedLayer`` takes its fsdp leaves from gathers launched a layer
+ahead; the ring posts each hop before its block.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
@@ -70,6 +78,14 @@ from dcos_commons_tpu_torch.models.quantize import dequantize_weight as dq
 from dcos_commons_tpu_torch.ops.attention import flash_attention
 from dcos_commons_tpu_torch.ops.rmsnorm import rms_norm
 from dcos_commons_tpu_torch.parallel.mesh import DATA_AXES, Mesh
+from dcos_commons_tpu_torch.parallel.overlap import (
+    GradReducer,
+    OverlapRun,
+    accumulated_mean,
+    applicable,
+    current_run,
+    resolve,
+)
 from dcos_commons_tpu_torch.parallel.pipeline import (
     last_stage_value,
     merge_microbatches,
@@ -91,6 +107,7 @@ from dcos_commons_tpu_torch.parallel.sharding import (
     unshard,
     vocab_parallel_embed,
     vocab_parallel_nll,
+    wait_scatters,
 )
 from dcos_commons_tpu_torch.parallel.ulysses import ulysses_attention
 from dcos_commons_tpu_torch.utils.tree import (
@@ -414,9 +431,14 @@ class _ShardedLayer:
 
     def __getitem__(self, name: str) -> torch.Tensor:
         if name not in self.cache:
-            self.cache[name] = gather_fsdp(
-                self.layers[name][self.i], self.rules["layers/" + name][1:],
-                self.mesh)
+            run = current_run()
+            if run is not None and run.prefetch is not None:
+                self.cache[name] = run.prefetch.read(self.layers, self.rules,
+                                                     self.i, name)
+            else:
+                self.cache[name] = gather_fsdp(
+                    self.layers[name][self.i],
+                    self.rules["layers/" + name][1:], self.mesh)
         return self.cache[name]
 
 
@@ -483,7 +505,9 @@ def _attention(config: TransformerConfig, q, k, v, mesh=None):
     config's sequence-parallel recipe over the mesh's sp ranks (none: an
     axis of one rank), or flash attention."""
     if config.use_ring_attention:
-        return ring_attention(q, k, v, mesh, config.sp_axis)
+        run = current_run()
+        return ring_attention(q, k, v, mesh, config.sp_axis,
+                              overlap=run is not None and run.ring)
     if config.use_ulysses_attention:
         return ulysses_attention(q, k, v, mesh, config.sp_axis)
     return flash_attention(q, k, v, causal=True)
@@ -581,7 +605,7 @@ def _layer_scan(config: TransformerConfig, layers, x, positions,
     activations instead of recomputing them — those activations die
     first in backward.  Remat never changes a value: the recompute runs
     the same deterministic kernels on the same inputs."""
-    n_layers = layers["attn_norm"].shape[0]
+    n_layers = len(layers["attn_norm"])
     remat = config.remat and torch.is_grad_enabled()
     k = config.no_remat_layers if config.remat else 0
     first_stored = n_layers - min(max(k, 0), n_layers)
@@ -896,6 +920,7 @@ def make_train_step(
     optimizer: torch.optim.Optimizer,
     mesh: Optional[Mesh] = None,
     grad_accum: int = 1,
+    overlap: bool = False,
 ) -> Callable[[Params, torch.Tensor, torch.Tensor], torch.Tensor]:
     """Build a (params, tokens, targets) -> loss step, on one device or,
     with a ``mesh``, on this rank of a gang.
@@ -924,40 +949,86 @@ def make_train_step(
     (``reduce_gradients``), AdamW steps the blocks, and the returned
     loss is the global batch's.  A mesh whose axes are all 1 runs
     exactly the single-device step.  ``check_mesh`` says which meshes
-    it refuses."""
+    it refuses.
+
+    ``overlap=True`` overlaps the step's collectives with its compute
+    (``parallel/overlap.py``): it engages every mechanism the mesh makes
+    a collective for (``overlap_mechanisms``), or raises
+    ``OverlapError`` where there is none.  The values are the
+    synchronous step's.  Each gradient is reduced
+    from the backward as soon as autograd has made it (with
+    ``grad_accum`` > 1, from the last microbatch's backward, each the
+    same ``(sum / k).to(p.dtype)``); the step's ``overlap`` attribute
+    names what engaged and ``stats`` counts it (``OverlapRun``)."""
     grad_accum = max(1, int(grad_accum))
     rules = None
     if mesh is not None:
         check_mesh(config, mesh)
         rules = leaf_rules(config)
+    mechanisms = resolve(overlap, mesh, _ring_axis(config))
 
-    def grads_of(params, leaves, tokens, targets):
-        loss = loss_fn(config, params, tokens, targets, mesh)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+    def grads_of(tree, inputs, tokens, targets, run, reducer):
+        """One microbatch's (loss, gradients of ``inputs``); its graph
+        dies here, before the optimizer steps.  With a ``reducer`` its
+        hooks take each gradient as autograd makes it."""
+        if run:
+            run.phase(backward=False)
+        loss = loss_fn(config, tree, tokens, targets, mesh)
+        if run:
+            run.phase(backward=True)
+        if reducer is not None:
+            reducer.hooks(inputs)
+        return loss.detach(), torch.autograd.grad(loss, inputs)
 
     def step(params, tokens, targets):
         leaves = tree_leaves(params)
-        if grad_accum == 1:
-            loss, grads = grads_of(params, leaves, tokens, targets)
-        else:
-            micro = zip(split_microbatches(tokens, grad_accum),
-                        split_microbatches(targets, grad_accum))
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=leaves[0].device)
-            grad_sum = [torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device) for p in leaves]
-            for mb_tokens, mb_targets in micro:
-                mb_loss, grads = grads_of(params, leaves, mb_tokens,
-                                          mb_targets)
-                loss = loss + mb_loss
-                for acc, g in zip(grad_sum, grads):
-                    acc.add_(g.float())
-            grads = [(g / grad_accum).to(p.dtype)
-                     for p, g in zip(leaves, grad_sum)]
-            loss = loss / grad_accum
-        if mesh is not None:
-            grads = reduce_gradients(list(grads), rules, mesh)
-            loss = batch_mean(loss, mesh)
+        micro = ([(tokens, targets)] if grad_accum == 1 else list(zip(
+            split_microbatches(tokens, grad_accum),
+            split_microbatches(targets, grad_accum))))
+        acc = None if grad_accum == 1 else [
+            torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for p in leaves]
+        loss, reducer = None, None
+        run = OverlapRun(mechanisms, mesh) if mechanisms else None
+        with run or contextlib.nullcontext():
+            for m, (mb_tokens, mb_targets) in enumerate(micro):
+                last = m == len(micro) - 1
+                # overlapped, each layer's gradients are their own leaves
+                tree, inputs, slots = (
+                    _split_layers(params, leaves) if run else
+                    (params, leaves, [(j, None) for j in range(len(leaves))]))
+                if run and last:
+                    # its hooks launch each bucket's reduction
+                    reducer = GradReducer(mesh, leaves, rules, slots, acc,
+                                          grad_accum)
+                mb_loss, got = grads_of(tree, inputs, mb_tokens, mb_targets,
+                                        run, reducer)
+                loss = mb_loss if loss is None else loss + mb_loss
+                if reducer is not None:
+                    # the hooks kept what they need of ``got``: drop it
+                    # before ``finish`` makes the leaves' gradients
+                    del got
+                    grads = reducer.finish()
+                    run.count(reducer)
+                    continue
+                wait_scatters()
+                if acc is None:
+                    grads = list(got)
+                elif last:
+                    grads = [accumulated_mean(a, g, grad_accum)
+                             for a, g in zip(acc, got)]
+                else:
+                    for (j, i), g in zip(slots, got):
+                        (acc[j] if i is None else acc[j][i]).add_(g.float())
+                del got
+            if acc is not None:
+                loss = loss / grad_accum
+            if mesh is not None:
+                if reducer is None:
+                    grads = reduce_gradients(grads, rules, mesh)
+                loss = batch_mean(loss, mesh)
+        if run:
+            stats.update(run.stats)
         for p, g in zip(leaves, grads):
             p.grad = g
         optimizer.step()
@@ -965,4 +1036,42 @@ def make_train_step(
             p.grad = None
         return loss
 
+    # a dict of its own, not ``step.stats`` set inside ``step``: a
+    # function that names itself is a reference cycle, which would keep
+    # the optimizer and its state alive until the cycle collector runs
+    stats: Dict[str, int] = {}
+    step.overlap, step.stats = mechanisms, stats
     return step
+
+
+def _ring_axis(config: TransformerConfig) -> Optional[str]:
+    return config.sp_axis if config.use_ring_attention else None
+
+
+def overlap_mechanisms(config: TransformerConfig, mesh: Optional[Mesh]
+                       ) -> tuple:
+    """What ``make_train_step(..., overlap=True)`` engages on ``mesh``
+    (``overlap.applicable`` with this config's ring axis): empty where
+    it would raise ``OverlapError``."""
+    return applicable(mesh, _ring_axis(config))
+
+
+def _split_layers(params: Params, leaves: List[torch.Tensor]):
+    """The tree an overlapped step differentiates: every leaf aliased by
+    a leaf of its own and each stacked ``layers`` leaf by one a layer
+    (a view of its row), so each layer's gradients exist as soon as
+    that layer's backward is done.  Returns (the tree, the new leaves,
+    and for each the (leaf index, row or None) it aliases)."""
+    index = {id(p): j for j, p in enumerate(leaves)}
+    inputs, slots = [], []
+
+    def alias(p, i=None):
+        t = (p.detach() if i is None else p.detach()[i]).requires_grad_(True)
+        inputs.append(t)
+        slots.append((index[id(p)], i))
+        return t
+
+    tree = {key: (alias(value) if key != "layers" else {
+        name: [alias(leaf, i) for i in range(leaf.shape[0])]
+        for name, leaf in value.items()}) for key, value in params.items()}
+    return tree, inputs, slots

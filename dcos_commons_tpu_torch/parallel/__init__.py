@@ -4,7 +4,8 @@ world (``mesh``), the rendezvous from the scheduler's env contract
 sharded step (``sharding``), ring and Ulysses attention over the
 sequence (``ring``, ``ulysses``), the GPipe schedule and the microbatch
 split (``pipeline``), and the collective and roofline probes
-(``collectives``)."""
+(``collectives``), and the overlap of the train step's collectives
+with its compute (``overlap``)."""
 
 from dcos_commons_tpu_torch.parallel.distributed import (
     contract_from_env,
@@ -27,6 +28,11 @@ from dcos_commons_tpu_torch.parallel.mesh import (
     make_mesh,
     mesh_from_env,
 )
+from dcos_commons_tpu_torch.parallel.overlap import (
+    MECHANISMS,
+    OverlapError,
+    enable_collective_overlap,
+)
 from dcos_commons_tpu_torch.parallel.pipeline import (
     last_stage_value,
     merge_microbatches,
@@ -40,13 +46,16 @@ from dcos_commons_tpu_torch.parallel.ulysses import ulysses_attention
 __all__ = [
     "BATCH_AXES",
     "DATA_AXES",
+    "MECHANISMS",
     "Mesh",
     "MeshSpec",
+    "OverlapError",
     "SpecError",
     "collective_bandwidth",
     "contract_from_env",
     "derive",
     "elastic_reshard_ok",
+    "enable_collective_overlap",
     "gang_rank",
     "init_gang",
     "initialize_from_env",

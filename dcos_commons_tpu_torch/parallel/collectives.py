@@ -29,6 +29,7 @@ import tempfile
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from dcos_commons_tpu_torch.device import resolve_device
@@ -40,6 +41,8 @@ from dcos_commons_tpu_torch.parallel.sharding import (
     ppermute,
 )
 
+# each collective is timed this many times: its median and range
+REPEATS = 5
 # bytes moved per rank per byte of its shard S on a ring of n (NCCL's
 # bus-bandwidth convention): an all-reduce 2(n-1)/n S, an all-gather
 # and a reduce-scatter (n-1) S each, a ring permute S
@@ -97,10 +100,12 @@ def collective_bandwidth(
 ) -> Dict[str, float]:
     """Bus GB/s a rank for each collective over ``axis`` of ``mesh``
     (every rank calls it together), ``payload_mb`` being each rank's
-    shard, on ``device`` (default the card).  Returns ``{collective +
-    "_gbps_per_chip": GB/s}`` with ``axis_size``, ``payload_mb_per_chip``
-    and ``iters``; an axis of one rank has no collective to time and
-    returns those three alone."""
+    shard, on ``device`` (default the card), timed ``REPEATS`` times
+    (each a chain of ``iters`` calls).  Returns ``{collective +
+    "_gbps_per_chip": the median GB/s}`` and ``{collective +
+    "_gbps_per_chip_range": [least, most]}`` with ``axis_size``,
+    ``payload_mb_per_chip`` and ``iters``; an axis of one rank has no
+    collective to time and returns those three alone."""
     dev = resolve_device(device)
     axes = (axis,)
     n = mesh.size(axes)
@@ -116,9 +121,13 @@ def collective_bandwidth(
         return results
     shard = torch.ones((rows, 128), dtype=dtype, device=dev)
     for name, factor in _ALGO_FACTOR.items():
-        seconds = _timed_s(_one(name, mesh, axes, n), shard, iters)
         moved = factor(n) * payload_bytes * iters
-        results[name + "_gbps_per_chip"] = moved / max(seconds, 1e-9) / 1e9
+        rates = sorted(
+            moved / max(_timed_s(_one(name, mesh, axes, n), shard, iters),
+                        1e-9) / 1e9
+            for _ in range(REPEATS))
+        results[name + "_gbps_per_chip"] = float(np.median(rates))
+        results[name + "_gbps_per_chip_range"] = [rates[0], rates[-1]]
     return results
 
 

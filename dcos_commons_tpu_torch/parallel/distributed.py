@@ -72,17 +72,23 @@ def gang_rank(contract: dict, local_rank: int = 0,
 
 
 def init_gang(init_method: str, world_size: int, rank: int,
-              backend: str, timeout_s: float = 300) -> None:
+              backend: str, timeout_s: float = 300,
+              local_rank: int = 0) -> None:
     """``torch.distributed.init_process_group`` with a timeout: NCCL for
     ranks that compute on CUDA tensors, gloo for CPU ones (the caller
-    says which)."""
+    says which).  Under NCCL the group is bound to this rank's card,
+    ``cuda:<local_rank>``, so its communicators are made for that card
+    up front."""
+    import torch
     import torch.distributed as dist
 
     LOG.info("init_process_group(%s, %s, %d/%d)", backend, init_method,
              rank, world_size)
+    bound = ({"device_id": torch.device("cuda", local_rank)}
+             if backend == "nccl" else {})
     dist.init_process_group(
         backend, init_method=init_method, world_size=world_size, rank=rank,
-        timeout=datetime.timedelta(seconds=timeout_s),
+        timeout=datetime.timedelta(seconds=timeout_s), **bound,
     )
 
 
@@ -123,7 +129,7 @@ def initialize_from_env(
             contract["slice_index"], contract["num_slices"],
             ",".join(contract["slice_coords"]) or "n/a",
         )
-    init_gang(init_method, world, rank, backend, timeout_s)
+    init_gang(init_method, world, rank, backend, timeout_s, local_rank)
     return contract
 
 

@@ -19,6 +19,14 @@ real transfer whose result nothing reads, so the loop stops after
 Autograd differentiates the loop: each hop's gradient goes back the
 reverse way round the ring, so every rank of the axis runs the backward
 together (each rank's graph holds the same hops).
+
+``overlap=True`` posts the hop of ``k_cur`` and ``v_cur`` for block i+1
+before block i's products and waits for it before the next iteration
+(``sharding.ppermute_start``).  In the backward the reverse hop is
+posted when autograd reaches the wait and waited on at the post, so it
+travels while block i's backward runs.  The values and the gradients
+are the synchronous loop's, bit for bit: the same products, and each
+K/V chunk's gradient is the same two terms.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ import torch
 # the reference module's dense oracle, whose copy lives beside K2
 from dcos_commons_tpu_torch.ops.attention import reference_attention  # noqa
 from dcos_commons_tpu_torch.parallel.mesh import Mesh
-from dcos_commons_tpu_torch.parallel.sharding import ppermute
+from dcos_commons_tpu_torch.parallel.sharding import ppermute, ppermute_start
 
 _NEG = -1e30
 
@@ -42,10 +50,12 @@ def ring_attention(
     mesh: Optional[Mesh],
     axis: str = "sp",
     causal: bool = True,
+    overlap: bool = False,
 ) -> torch.Tensor:
     """Attention over a sequence sharded on ``axis`` of ``mesh`` (None:
     an axis of one rank).  Shapes (per rank): q/k/v ``[batch, heads,
-    chunk, head_dim]``, this rank's chunk ``mesh.index((axis,))``."""
+    chunk, head_dim]``, this rank's chunk ``mesh.index((axis,))``.
+    ``overlap`` posts each hop before the block it overlaps."""
     axes = (axis,)
     size = 1 if mesh is None else mesh.size(axes)
     my_idx = 0 if mesh is None else mesh.index(axes)
@@ -63,6 +73,10 @@ def ring_attention(
     k_cur, v_cur = k, v
     for i in range(size):
         src = (my_idx - i) % size  # the chunk this rank holds now
+        hops = None
+        if overlap and i < size - 1:
+            hops = (ppermute_start(k_cur, mesh, axes),
+                    ppermute_start(v_cur, mesh, axes))
         s = torch.einsum("bhqd,bhkd->bhqk", q32, k_cur.float())
         if causal:
             masked = q_pos < src * chunk + k_off
@@ -76,7 +90,9 @@ def ring_attention(
         o = o * alpha[..., None] + torch.einsum(
             "bhqk,bhkd->bhqd", p, v_cur.float())
         m = m_new
-        if i < size - 1:
+        if hops is not None:
+            k_cur, v_cur = hops[0].wait(), hops[1].wait()
+        elif i < size - 1:
             k_cur = ppermute(k_cur, mesh, axes)
             v_cur = ppermute(v_cur, mesh, axes)
     out = o / torch.clamp(l, min=1e-30)[..., None]

@@ -38,6 +38,16 @@ skipped, on every rank alike.
 
 ``timed_collectives()`` adds up the host time spent in the collectives
 (each bracketed by device synchronisations while it is on).
+
+The overlapped step (``parallel/overlap.py``) uses the start/wait forms
+below: ``all_reduce_start``, ``gather_start`` and ``ppermute_start``
+launch with ``async_op=True`` and return a handle (``Pending``, ``Hop``)
+that is waited on where its result is read, and ``_Gather``'s
+reduce-scatter is launched the same way while an overlapped step asks
+for it (``_Async.scatters``).  Nothing of the overlapped step is
+bracketed by a synchronisation: ``timed_collectives`` reports its host
+time blocked in waits (and in the blocking collectives it still makes)
+as ``wait_seconds``.
 """
 
 from __future__ import annotations
@@ -79,20 +89,31 @@ class _Clock:
     enabled = False
     seconds = 0.0
     calls = 0
+    # set while an overlapped step runs: nothing is synchronised
+    overlapped = False
+    wait_seconds = 0.0
+    waits = 0
+    starts = 0
 
 
 @contextlib.contextmanager
 def timed_collectives():
     """While on, every collective of this module waits for the device
     before and after it and adds its host time to the yielded stats
-    (``seconds``, ``calls``)."""
+    (``seconds``, ``calls``).  Inside an overlapped step nothing is
+    synchronised: the host time blocked in a handle's wait or in a
+    blocking collective goes to ``wait_seconds`` (``waits`` of them),
+    and ``starts`` counts the asynchronous launches."""
     _Clock.enabled, _Clock.seconds, _Clock.calls = True, 0.0, 0
+    _Clock.wait_seconds, _Clock.waits, _Clock.starts = 0.0, 0, 0
     stats: Dict[str, float] = {}
     try:
         yield stats
     finally:
         _Clock.enabled = False
-        stats.update(seconds=_Clock.seconds, calls=_Clock.calls)
+        stats.update(seconds=_Clock.seconds, calls=_Clock.calls,
+                     wait_seconds=_Clock.wait_seconds, waits=_Clock.waits,
+                     starts=_Clock.starts)
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -103,6 +124,12 @@ def _sync(t: torch.Tensor) -> None:
 def _collective(fn, t: torch.Tensor, *args, **kw) -> None:
     if not _Clock.enabled:
         fn(*args, **kw)
+        return
+    if _Clock.overlapped:
+        t0 = time.perf_counter()
+        fn(*args, **kw)
+        _Clock.wait_seconds += time.perf_counter() - t0
+        _Clock.waits += 1
         return
     _sync(t)
     t0 = time.perf_counter()
@@ -119,16 +146,23 @@ def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return t
 
 
-def _gather_dim(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+def _dim_buffers(t: torch.Tensor, dim: int, times: int, over: int = 1):
+    """``t`` with ``dim`` moved first (contiguous) and an empty output of
+    ``times / over`` its first dimension: an all-gather's operands
+    (``times`` n) or a reduce-scatter's (``over`` n)."""
     moved = t.movedim(dim, 0).contiguous()
-    out = moved.new_empty((n * moved.shape[0],) + tuple(moved.shape[1:]))
+    return moved, moved.new_empty((moved.shape[0] * times // over,)
+                                  + tuple(moved.shape[1:]))
+
+
+def _gather_dim(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    moved, out = _dim_buffers(t, dim, n)
     _collective(dist.all_gather_into_tensor, out, out, moved, group=group)
     return out.movedim(0, dim)
 
 
 def _scatter_dim(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
-    moved = t.movedim(dim, 0).contiguous()
-    out = moved.new_empty((moved.shape[0] // n,) + tuple(moved.shape[1:]))
+    moved, out = _dim_buffers(t, dim, 1, n)
     _collective(dist.reduce_scatter_tensor, out, out, moved,
                 op=dist.ReduceOp.SUM, group=group)
     return out.movedim(0, dim)
@@ -141,6 +175,17 @@ def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+def _shift_args(t: torch.Tensor, index: int, n: int, shift: int):
+    """``all_to_all_single``'s output, input and split keywords for
+    ``_shift``."""
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    send, recv = [0] * n, [0] * n
+    send[(index + shift) % n] = t.numel()
+    recv[(index - shift) % n] = t.numel()
+    return out, t, dict(output_split_sizes=recv, input_split_sizes=send)
+
+
 def _shift(t: torch.Tensor, group, index: int, n: int, shift: int
            ) -> torch.Tensor:
     """``t`` of the rank ``shift`` places before this one on the axis
@@ -148,15 +193,110 @@ def _shift(t: torch.Tensor, group, index: int, n: int, shift: int
     ``all_to_all_single`` with every split empty but the two peers', so
     the send and the receive are posted together (a ring cannot
     deadlock) and gloo stages CUDA tensors through the host itself."""
-    t = t.contiguous()
-    out = torch.empty_like(t)
-    send, recv = [0] * n, [0] * n
-    send[(index + shift) % n] = t.numel()
-    recv[(index - shift) % n] = t.numel()
+    out, t, splits = _shift_args(t, index, n, shift)
     _collective(dist.all_to_all_single, out, out.view(-1), t.view(-1),
-                output_split_sizes=recv, input_split_sizes=send,
-                group=group)
+                group=group, **splits)
     return out
+
+
+# -- asynchronous collectives -------------------------------------------------
+
+
+class Pending:
+    """An asynchronous collective in flight: ``value`` is its output,
+    which nothing may read before ``wait()`` (NCCL: the current stream
+    waits for the collective; gloo: the host does).  A collective of a
+    group of one rank launches nothing and is ready at once."""
+
+    def __init__(self, work, value: torch.Tensor):
+        self.work, self.value = work, value
+
+    def wait(self) -> torch.Tensor:
+        if self.work is not None:
+            t0 = time.perf_counter()
+            self.work.wait()
+            self.work = None
+            if _Clock.enabled:
+                _Clock.wait_seconds += time.perf_counter() - t0
+                _Clock.waits += 1
+        return self.value
+
+
+def _start(fn, *args, **kw):
+    if _Clock.enabled:
+        _Clock.starts += 1
+    return fn(*args, async_op=True, **kw)
+
+
+def all_reduce_start(t: torch.Tensor, group) -> Pending:
+    """``all_reduce`` (sum) of ``t`` in place over ``group``, launched."""
+    if group is None:
+        return Pending(None, t)
+    return Pending(_start(dist.all_reduce, t, group=group), t)
+
+
+def gather_start(x: torch.Tensor, dim: int, group, n: int) -> Pending:
+    """``_gather_dim`` launched: the all-gather of ``dim`` over
+    ``group`` (rank order), no autograd (``gathered`` attaches it)."""
+    moved, out = _dim_buffers(x.detach(), dim, n)
+    work = _start(dist.all_gather_into_tensor, out, moved, group=group)
+    return Pending(work, out.movedim(0, dim))
+
+
+def _scatter_start(t: torch.Tensor, dim: int, group, n: int) -> Pending:
+    moved, out = _dim_buffers(t, dim, 1, n)
+    work = _start(dist.reduce_scatter_tensor, out, moved,
+                  op=dist.ReduceOp.SUM, group=group)
+    return Pending(work, out.movedim(0, dim))
+
+
+def _shift_start(t: torch.Tensor, group, index: int, n: int, shift: int
+                 ) -> Pending:
+    """``_shift`` launched."""
+    out, t, splits = _shift_args(t, index, n, shift)
+    work = _start(dist.all_to_all_single, out.view(-1), t.view(-1),
+                  group=group, **splits)
+    return Pending(work, out)
+
+
+class _Async:
+    """While ``scatters`` is a list (``overlapped_collectives``), each
+    fsdp reduce-scatter of the backward is launched and appended there,
+    and its gradient is read only after ``wait_scatters()``."""
+
+    scatters: Optional[List[Pending]] = None
+
+
+@contextlib.contextmanager
+def overlapped_collectives(async_scatters: bool):
+    """The span of an overlapped step: ``timed_collectives``
+    synchronises nothing, and with ``async_scatters`` the backward's
+    fsdp reduce-scatters are launched and left in flight (every one is
+    waited on before this returns)."""
+    _Clock.overlapped = True
+    _Async.scatters = [] if async_scatters else None
+    try:
+        yield
+        wait_scatters()
+    finally:
+        _Clock.overlapped = False
+        _Async.scatters = None
+
+
+def wait_scatters() -> None:
+    """Wait on every fsdp reduce-scatter launched so far."""
+    if _Async.scatters:
+        for pending in _Async.scatters:
+            pending.wait()
+        _Async.scatters.clear()
+
+
+def _scatter_grad(g: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    if _Async.scatters is None:
+        return _scatter_dim(g, dim, group, n)
+    pending = _scatter_start(g, dim, group, n)
+    _Async.scatters.append(pending)
+    return pending.value
 
 
 # -- autograd collectives ---------------------------------------------------
@@ -202,7 +342,22 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _scatter_dim(g, ctx.dim, ctx.group, ctx.n), None, None, None
+        return _scatter_grad(g, ctx.dim, ctx.group, ctx.n), None, None, None
+
+
+class _Gathered(torch.autograd.Function):
+    """A gather launched ahead (``gather_start``), waited on here, at
+    its first read; the backward is ``_Gather``'s."""
+
+    @staticmethod
+    def forward(ctx, x, pending, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return pending.wait()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_scatter_grad(g, ctx.dim, ctx.group, ctx.n), None, None,
+                None, None)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -225,6 +380,61 @@ class _PPermute(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _shift(g, *ctx.args), None, None, None, None
+
+
+class _HopStart(torch.autograd.Function):
+    """The launch of a ring hop.  Its output is the receive buffer,
+    which only ``_HopWait`` reads; in the backward it waits for the
+    reverse hop that ``_HopWait``'s backward launched, so autograd runs
+    the backward of whatever the forward did between the two (the
+    ring's block) while the gradient travels.  The hop drops each
+    tensor once it has been waited on: a tensor kept there would hold
+    its own autograd node, whose context holds the hop, in a cycle."""
+
+    @staticmethod
+    def forward(ctx, x, hop):
+        ctx.hop = hop
+        hop.pending = _shift_start(x, *hop.args)
+        return hop.pending.value
+
+    @staticmethod
+    def backward(ctx, g):
+        back, ctx.hop.back = ctx.hop.back, None
+        return back.wait(), None
+
+
+class _HopWait(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, buffer, hop):
+        ctx.hop = hop
+        hop.pending.wait()
+        hop.pending = None
+        return buffer.view_as(buffer)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, index, n, shift = ctx.hop.args
+        ctx.hop.back = _shift_start(g, group, index, n, -shift)
+        return ctx.hop.back.value, None
+
+
+class Hop:
+    """``ppermute_start``'s handle: ``wait()`` (once) returns what the
+    forward ``ppermute`` returns, with the same gradient."""
+
+    def __init__(self, x: torch.Tensor, group, index: int, n: int,
+                 shift: int):
+        self.args = (group, index, n, shift)
+        self.pending = self.back = None
+        self.buffer = None if group is None else _HopStart.apply(x, self)
+        self.x = x if group is None else None
+
+    def wait(self) -> torch.Tensor:
+        if self.buffer is None:
+            x, self.x = self.x, None
+            return x
+        buffer, self.buffer = self.buffer, None
+        return _HopWait.apply(buffer, self)
 
 
 def copy_to(x: torch.Tensor, mesh: Optional[Mesh], axes: Sequence[str]
@@ -279,6 +489,27 @@ def ppermute(x: torch.Tensor, mesh: Optional[Mesh], axes: Sequence[str],
         return x
     return _PPermute.apply(x, group, mesh.index(axes), mesh.size(axes),
                            shift)
+
+
+def ppermute_start(x: torch.Tensor, mesh: Optional[Mesh],
+                   axes: Sequence[str], shift: int = 1) -> Hop:
+    """``ppermute`` in two halves: the hop is posted now and
+    ``.wait()`` returns its result.  The gradient takes the reverse trip
+    the same way: posted when the backward reaches ``.wait()``'s node,
+    waited on at the launch's."""
+    group = None if mesh is None else mesh.group(axes)
+    if group is None:
+        return Hop(x, None, 0, 1, shift)
+    return Hop(x, group, mesh.index(axes), mesh.size(axes), shift)
+
+
+def gathered(x: torch.Tensor, pending: Pending, dim: int,
+             mesh: Mesh, axes: Sequence[str]) -> torch.Tensor:
+    """``gather(x, dim, mesh, axes)`` from ``gather_start``'s handle of
+    ``x``'s gather: waits on it and attaches the reduce-scatter of the
+    gradient."""
+    return _Gathered.apply(x, pending, dim, mesh.group(axes),
+                           mesh.size(axes))
 
 
 def gather_fsdp(t: torch.Tensor, dims: Dims, mesh: Optional[Mesh]

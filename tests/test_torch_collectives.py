@@ -36,6 +36,8 @@ def test_collective_bandwidth_over_gloo(tmp_path):
     assert report["payload_mb_per_chip"] == 0.5
     for name in NAMES:
         assert report[f"{name}_gbps_per_chip"] > 0, report
+        low, high = report[f"{name}_gbps_per_chip_range"]
+        assert 0 < low <= report[f"{name}_gbps_per_chip"] <= high, report
 
 
 def test_collective_bandwidth_on_one_rank_degenerates():

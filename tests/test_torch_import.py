@@ -74,6 +74,7 @@ def test_every_port_module_imports_without_jax():
         "dcos_commons_tpu_torch.parallel.ring",
         "dcos_commons_tpu_torch.parallel.ulysses",
         "dcos_commons_tpu_torch.parallel.collectives",
+        "dcos_commons_tpu_torch.parallel.overlap",
         "dcos_commons_tpu_torch.frameworks.serve_gang_worker",
         "dcos_commons_tpu_torch.frameworks.router_worker",
         "dcos_commons_tpu_torch.router",

@@ -368,15 +368,29 @@ def scenario_standby_restart(P, tmp_path):
         client.set("/svc/a", b"1")
         standby = P.StateServer(P.Wal(str(root / "standby")),
                                 replicate_from=primary.url).start()
-        wait_until(lambda: standby._backend.get_or_none("/svc/a") == b"1",
-                   what="first replication")
-        applied = standby._tail.applied_seq
+        node = P.replication.StandbyTail.APPLIED_NODE
+
+        def persisted():
+            # the tail writes the tree before it sets applied_seq and
+            # stores it after: read the seq once both have caught up
+            seq = standby._tail.applied_seq
+            return (standby._backend.get_or_none("/svc/a") == b"1"
+                    and seq >= 1
+                    and standby._backend.get_or_none(node)
+                    == str(seq).encode())
+
+        wait_until(persisted, what="first replication")
+        applied = int(standby._backend.get_or_none(node).decode())
         standby.stop()
         client.set("/svc/b", b"2")
         again = P.StateServer(P.Wal(str(root / "standby")),
-                              replicate_from=primary.url).start()
+                              replicate_from=primary.url)
+        # the seq as the restart loaded it, before the tail thread
+        # starts and can apply /svc/b
+        loaded = again._tail.applied_seq
+        again.start()
         try:
-            out = [applied, again._tail.applied_seq]
+            out = [applied, loaded]
             wait_until(lambda: again._backend.get_or_none("/svc/b") == b"2",
                        what="catch-up after restart")
             out.append(user_tree(P, again._backend))
