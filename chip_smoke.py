@@ -31,6 +31,9 @@ CUDA card).  Phases, each fatal on failure:
 4. The paged server (the default) answers the same requests, with a
    shared prefix so the prefix cache is hit; K1 must have launched and
    K2 not (paged attention is plain PyTorch, as in the JAX package).
+   After the mix, ten decode steps of the whole pool are timed and the
+   peak memory and the KV bytes a step are read (``pod_metrics``, for
+   phase 24(c)).
 5. Greedy outputs of the paged and slot paths are token-identical on a
    2-layer f32 model at the same width.
 6. Train-step parity: one ``make_train_step`` (AdamW) of a 2-layer f32
@@ -68,7 +71,8 @@ CUDA card).  Phases, each fatal on failure:
    Two processes on the one card joined by gloo, at the flagship's
    width cut to 4 layers, global batch 4: the dense model under dp2,
    tp2 and fsdp2, the MoE under tp2 and ep2, each against the
-   one-process step on the card (bf16: the loss within 1e-2; f32 at 2
+   one-process step on the card (bf16, at ``GANG_LAYERS_ONE_CARD`` (2)
+   layers: the loss within 1e-2; f32 at 2
    layers and seq 256, TF32 off: the loss within 1e-5, the first
    step's gradients and the params as ``compare_f32`` says); K2-K4 launch on each rank's rows and h/tp
    heads; each step's time split into collectives and compute.  Then
@@ -86,8 +90,8 @@ CUDA card).  Phases, each fatal on failure:
    pools: the greedy replies to 8 requests (16 new tokens each, one at
    a time) equal one process's, and the prefill logits of a 900-token
    prompt are within ``GANG_F32_LOGITS_RTOL`` of one process's.  (b)
-   The bf16 flagship at full width served by the tp2 gang on both pools
-   over phase 3's mix: every reply has its length; tokens/s, TTFT, the
+   The bf16 flagship at full width and ``GANG_LAYERS_ONE_CARD`` (2)
+   layers served by the tp2 gang on both pools over phase 3's mix: every reply has its length; tokens/s, TTFT, the
    decode step and its collectives' share (``timed_collectives``); K1
    and K2 launch on each rank at its 8 heads (K2 on the slot pool only)
    and are held against their plain versions at every shape a rank
@@ -107,7 +111,7 @@ CUDA card).  Phases, each fatal on failure:
    as ``compare_f32`` says) and the pipeline over pp2 in 2
    microbatches (``pipeline_value_and_grad`` and AdamW on each stage's
    leaves, held the same way).  (b) The bf16 flagship at full width and
-   depth, 2048 positions a rank: Ulysses and ring over sp2 (a context
+   ``WORKER_DEPTH`` (4) layers, 2048 positions a rank: Ulysses and ring over sp2 (a context
    of 4096, batch 1, 3 steps) and the pipeline over pp2 (batch 4, 4
    microbatches, 2 steps), the loss within 1e-2 of one process; step
    ms, tokens/s and the split into collectives and compute.  Ulysses
@@ -297,6 +301,40 @@ CUDA card).  Phases, each fatal on failure:
    ``LocalProcessAgent``, cycling until the trainer's steps (as above):
    no lock-order cycle, no unordered write.  Every process of the
    agents is killed at the end of each run.
+24. Serving's migration and int8 paths, under ``build/smoke/migration/``.
+   (a) Two paged serve-worker processes A and B (``start_pod``; f32
+   with TF32 off, the flagship's width at ``WORKER_DEPTH`` layers,
+   pages of 16, chunks of 64).  A's greedy replies to phase 14's
+   prompts (300 tokens, ``MIGRATION_NEW`` (64) new) one at a time;
+   then the same requests through the port's ``RouterServer`` (an
+   endpoint stub listing only A); once A holds them all, B joins the
+   stub, and once A decodes two sessions,
+   ``POST /drain?pod=A&to=B`` moves A's live sessions to B
+   (``migrate_drain``, the worker's ``/migrate`` drain verb).  Every
+   reply equals A's direct one (a token may differ only where A's top-2
+   logit margin is under ``TIE_MARGIN``, each such case logged); every
+   report row moved, or its session had finished before its turn; at
+   least one moved; B's ``migrations_in`` equals A's
+   ``migrations_out``; A's free and reclaimable pages are back at their
+   start; no failover, one collect followed for each move.  (b) Decode
+   pod D (``SERVE_ROLE=decode``) and prefill pod P (``SERVE_ROLE=prefill``,
+   ``SERVE_DECODE_PODS`` naming D): the requests to P directly (each
+   409 followed with a collect on D) and through the router (the stub
+   gives the roles; long prompts go to P); every reply equals A's, P's
+   ``prefill_handoffs`` is twice the requests, ``prefill_fallbacks`` 0,
+   its ``serving_role`` prefill.  Each pod's K1-K4 launches are its own
+   counters (``/stats`` ``kernel_launches``) over the phase: K1 only.
+   Sessions moved: pages, MiB and ms each, from the pods' logs.  (c) K1
+   at the f32 pods' shapes; the f32 flagship width at 2 layers with int8
+   weights (the card's own quantize within one code of the CPU's) and
+   an int8 arena, one 64-token chunk and 8 decode steps card against
+   CPU on the same codes: logits within ``INT8_LOGITS_ATOL``, KV codes
+   within one step, greedy tokens equal but at ties; then the bf16
+   flagship (12 layers) with ``KV_DTYPE=int8`` and ``WEIGHT_DTYPE=int8``
+   serves phase 4's mix in this process: tokens/s, TTFT, ten decode
+   steps' ms, the peak memory, the KV bytes a step, beside phase 4's
+   native run, and one decode step profiled: the device ms of
+   ``dequantize_weight``.  Every pod is killed and waited for.
 8. Run last: every kernel against its plain version at each shape the
    train runs of phases 7, 11, 12 and 15 launched it at (K1 [24576,
    16384 or 4096, 2048] bf16, K2-K4 [192, 128 or 32, 2048, 2048, 128]
@@ -342,7 +380,8 @@ entry's ``launches`` sums the main-path runs, dense and MoE (phases 3,
 the placed worker of 18(a), the planned one of 19(a), the
 scheduled one of 20(a), the served one of 21(a), the two
 deployed through the daemon in 22(a) and 22(e), the adopted ones of
-23(b) and 23(c)'s) and the forward of 3(a),
+23(b) and 23(c)'s, the pods of 24 and its int8 pod) and the forward of
+3(a),
 and its ``design`` says how it computes (K1: a warp a
 row with 16-byte vector loads, launched through ctypes; K2-K4: wgmma
 with TMA-fed tiles in bf16, f32 FMA in f32).  The last line is ``{"ok":
@@ -935,15 +974,23 @@ def check_replies(requests, replies, vocab):
             raise AssertionError(f"token out of range: {toks[0]}")
 
 
-def serve(env, requests, logs):
+def serve(env, requests, logs, measure=None):
     """Start the port's worker in a thread, reset the counters, drive
     ``requests`` in two concurrent waves, read the counters.  Returns (replies,
-    launches by kernel, stats, wall seconds)."""
+    launches by kernel, stats, wall seconds); with ``measure``,
+    ``stats["measured"]`` is ``measure(served)`` after the mix, with the
+    peak memory of the server's build (``build_peak_gib``); the peak
+    ``measure`` reads counts from the build's end."""
     from dcos_commons_tpu_torch.frameworks.serve_worker import build_server
 
     from dcos_commons_tpu_torch.utils import param_bytes, param_count
 
+    if measure is not None:
+        torch.cuda.reset_peak_memory_stats()
     served = build_server(env, log=log, ready_file="")
+    if measure is not None:
+        build_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
     log(f"params: {param_count(served.pool.params)} "
         f"({param_bytes(served.pool.params) / 1e9:.3f} GB)")
     thread = threading.Thread(target=served.server.serve_forever,
@@ -957,6 +1004,9 @@ def serve(env, requests, logs):
         torch.cuda.synchronize()
         launches = {n: s.inner.launches for n, s in logs.items()}
         stats = post(served.port, "/stats")
+        if measure is not None:
+            stats["measured"] = dict(measure(served),
+                                     build_peak_gib=build_peak / GIB)
     finally:
         served.server.shutdown()
         served.server.server_close()
@@ -1220,22 +1270,26 @@ MOE_PARTS = {
 }
 
 
-class MoEScopes:
-    """While installed, each MoE part runs inside a profiler range named
-    ``moe.<function>``; the port's own code carries no ranges."""
+class Scopes:
+    """While installed, each target ``(module, function name, part)``
+    runs inside a profiler range named ``part.<part>``; the port's own
+    code carries no ranges."""
+
+    def __init__(self, targets):
+        self.targets = list(targets)
+        self.saved = []
 
     def __enter__(self):
-        from dcos_commons_tpu_torch.models import moe
-
-        self.moe = moe
-        self.saved = {name: getattr(moe, name) for name in MOE_PARTS}
-        for name, fn in self.saved.items():
-            setattr(moe, name, self.scoped("moe." + name, fn))
+        for module, name, part in self.targets:
+            fn = getattr(module, name)
+            self.saved.append((module, name, fn))
+            setattr(module, name, self.scoped("part." + part, fn))
         return self
 
     def __exit__(self, *exc):
-        for name, fn in self.saved.items():
-            setattr(self.moe, name, fn)
+        for module, name, fn in reversed(self.saved):
+            setattr(module, name, fn)
+        self.saved = []
 
     @staticmethod
     def scoped(label, fn):
@@ -1245,6 +1299,13 @@ class MoEScopes:
         return run
 
 
+def moe_scopes():
+    """The MoE parts (``MOE_PARTS``) as ``Scopes`` targets."""
+    from dcos_commons_tpu_torch.models import moe
+
+    return [(moe, name, part) for name, part in MOE_PARTS.items()]
+
+
 # device work in a Kineto trace, and the host spans that nest host ops
 DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_SPANS = ("cpu_op", "user_annotation")
@@ -1252,7 +1313,8 @@ HOST_SPANS = ("cpu_op", "user_annotation")
 
 def time_by_part(trace):
     """Device ms of a profile's Kineto trace (the dict
-    ``export_chrome_trace`` writes) by MoE part, forward and backward,
+    ``export_chrome_trace`` writes) by part (``Scopes``: the MoE's, the
+    int8 dequantize), forward and backward,
     and the rest by kind of kernel (``WORK_KINDS``).  A device operation
     belongs to the host op of its ``External id``; that op belongs to a
     part when it ran inside the part's range (the forward, and remat's
@@ -1269,8 +1331,8 @@ def time_by_part(trace):
             stack.pop()
         ctx, in_bwd = stack[-1][1:] if stack else (None, False)
         args = e.get("args", {})
-        if e["name"].startswith("moe."):
-            ctx = ("part", MOE_PARTS[e["name"][4:]])
+        if e["name"].startswith("part."):
+            ctx = ("part", e["name"][5:])
         elif e["name"].startswith("autograd::engine::evaluate_function"):
             ctx, in_bwd = ("node", args.get("Sequence number")), True
         if ctx and ctx[0] == "part" and not in_bwd \
@@ -1295,13 +1357,14 @@ def time_by_part(trace):
 PAD_KERNELS = 64  # the recorded window's own first kernels (profile_step)
 
 
-def profile_step(run, top=10, moe=False):
+def profile_step(run, top=10, moe=False, scopes=()):
     """Two ``run()``s under ``torch.profiler``, the first a warm-up it
     discards, the second recorded: logs the ``top`` device operations by
     device time, the port's kernels, the device time by kind of work
     (``time_by_part``, from the exported trace; with ``moe``, the MoE
-    parts run in ranges and are split out first), and the device's busy
-    time against the step's host-clock time (with the profiler on).
+    parts run in ranges and are split out first, as are ``scopes``, more
+    ``Scopes`` targets), and the device's busy time against the step's
+    host-clock time (with the profiler on); returns that split.
     Fails when the profiler records no device time, or when the trace
     holds another number of a kernel's launches than its wrapper
     counted in the recorded step.
@@ -1329,7 +1392,7 @@ def profile_step(run, top=10, moe=False):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
-        with MoEScopes() if moe else contextlib.nullcontext():
+        with Scopes(list(scopes) + (moe_scopes() if moe else [])):
             run()
             torch.cuda.synchronize()
             prof.step()
@@ -1344,12 +1407,12 @@ def profile_step(run, top=10, moe=False):
             wall_ms = (time.perf_counter() - t0) * 1e3
             counted = {n: c.launches - before[n] for n, c in counters.items()}
             prof.step()
-    # the ranges' own device spans (the MoE parts, the profiler's step)
+    # the ranges' own device spans (the parts, the profiler's step)
     # would count their kernels twice
     ops = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA
            and e.self_device_time_total > 0
-           and not e.key.startswith(("moe.", "ProfilerStep"))]
+           and not e.key.startswith(("part.", "ProfilerStep"))]
     if not ops:
         raise AssertionError("torch.profiler recorded no device time")
     busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
@@ -1392,6 +1455,7 @@ def profile_step(run, top=10, moe=False):
     log(f"  by kind ({sum(split.values()):.1f} ms attributed): " + ", ".join(
         f"{kind} {ms:.1f} ms ({ms / busy_ms:.1%})"
         for kind, ms in sorted(split.items(), key=lambda kv: -kv[1])))
+    return split
 
 
 def time_train_step(logs, config, batch, label, peaks, warmup=2, steps=5):
@@ -1539,6 +1603,7 @@ NCCL4_LAYOUTS = (
 )
 GANG_BATCH = 4            # the global batch of the gang phases
 GANG_LAYERS = 4           # the flagship's width, depth cut to 4
+GANG_LAYERS_ONE_CARD = 2  # 12(b)'s and 13(b)'s bf16 depth on one card
 GANG_STEPS = 2
 # bf16 gang against one process: the loss within 1e-2 relative at each
 # step (the gang's products run at other shapes and its partial sums
@@ -1965,16 +2030,16 @@ def gang_rank_main(rank, world, backend, init_method, cases, results):
         results.put((rank, None, traceback.format_exc()))
 
 
-def phase_gang(tag, world, backend, layouts, deadline_s):
+def phase_gang(tag, world, backend, layouts, deadline_s, layers=GANG_LAYERS):
     """A gang of ``world`` spawned processes at the flagship's width:
-    each of ``layouts`` in bf16 at GANG_LAYERS layers and seq 2048, then
+    each of ``layouts`` in bf16 at ``layers`` layers and seq 2048, then
     in f32 (TF32 off) at 2 layers and seq 256.  Checks each against the
     one-process step and the kernels' launches on each rank's rows and
     h/tp heads; returns (launches by kernel summed over the ranks,
     shapes).  Phase 12(b) is two processes on the one card over gloo."""
     seq = int(TRAIN_ENV["SEQ_LEN"])
     cases = [(label, extra, fields, dtype, layers, s)
-             for dtype, layers, s in ((torch.bfloat16, GANG_LAYERS, seq),
+             for dtype, layers, s in ((torch.bfloat16, layers, seq),
                                       (torch.float32, 2, 256))
              for label, extra, fields in layouts]
     reports = spawn_ranks(gang_rank_main, world, backend, (cases,),
@@ -2382,10 +2447,12 @@ def phase_gang_f32(sandbox):
         torch.cuda.empty_cache()
 
 
-def endpoint_stub(backends):
+def endpoint_stub(backends, roles=None):
     """A stand-in for the scheduler's ``GET /v1/endpoints/<vip>``, in the
     shape ``router.frontdoor.fetch_endpoint`` reads; ``backends`` is the
-    live list (name -> address), read at every poll."""
+    live list (name -> address), read at every poll; ``roles`` gives a
+    backend its serving role (name -> "prefill" or "decode")."""
+    roles = roles or {}
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     class Handler(BaseHTTPRequestHandler):
@@ -2397,11 +2464,16 @@ def endpoint_stub(backends):
                 self.send_error(404)
                 return
             body = json.dumps({
-                "name": "vip:inference", "generation": "g1",
+                # a new backend set is a new generation (the router
+                # rebuilds its pod set only when the generation moves)
+                "name": "vip:inference",
+                "generation": json.dumps(sorted(backends.items())),
                 "address": sorted(backends.values()),
-                "backends": [{"address": a, "task": n,
-                              "state": "TASK_RUNNING", "ready": True,
-                              "draining": False}
+                "backends": [dict({"address": a, "task": n,
+                                   "state": "TASK_RUNNING", "ready": True,
+                                   "draining": False},
+                                  **({"role": roles[n]} if n in roles
+                                     else {}))
                              for n, a in sorted(backends.items())],
             }).encode()
             self.send_response(200)
@@ -2415,21 +2487,26 @@ def endpoint_stub(backends):
     return server
 
 
-def start_pod(env, workdir):
+def start_pod(env, workdir, procs=None):
     """The port's serve worker as a process of its own on the card (so
-    it can be killed mid-stream); returns (process, port)."""
+    it can be killed mid-stream); returns (process, port).  The
+    process's output lines gather in ``process.lines``; the process
+    joins ``procs`` as soon as it exists (for a cleanup that may run
+    before it is warm)."""
     os.makedirs(workdir, exist_ok=True)
     proc = subprocess.Popen(
         [sys.executable, os.path.join(ROOT, "dcos_commons_tpu_torch",
                                       "frameworks", "serve_worker.py")],
         cwd=workdir, env=dict(os.environ, **dict(env, SANDBOX=workdir)),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    lines = []
+    if procs is not None:
+        procs.append(proc)
+    lines = proc.lines = []
     for line in proc.stdout:
         lines.append(line)
         if line.startswith("warm:"):
             port = int(line.rsplit("port", 1)[1])
-            threading.Thread(target=lambda: [None for _ in proc.stdout],
+            threading.Thread(target=lambda: lines.extend(proc.stdout),
                              daemon=True).start()
             return proc, port
     proc.wait()
@@ -2537,11 +2614,12 @@ def phase_router(gang_port, pod_env, sandbox):
 
 
 def phase_gang_serving(tag, world, backend, sandbox, router_phase,
-                       watchdog=None):
+                       watchdog=None, layers=None):
     """13b (and ``--nccl-gang``'s tp4): the bf16 flagship at full width
-    served by a tp gang on both pools over the mix; on the slot pool,
-    then, with ``router_phase``, phase 14 in front of it.  Returns
-    (launches summed over the ranks, K1 shapes, K2 shapes)."""
+    (at ``layers`` layers where given) served by a tp gang on both pools
+    over the mix; on the slot pool, then, with ``router_phase``, phase 14
+    in front of it.  Returns (launches summed over the ranks, K1 shapes,
+    K2 shapes)."""
     requests = requests_for(32768)
     heads = 16 // world
     launches = {n: 0 for n in ("K1", "K2", "K3", "K4")}
@@ -2550,6 +2628,8 @@ def phase_gang_serving(tag, world, backend, sandbox, router_phase,
                         ("paged", {"KV_PAGE_TOKENS": "16",
                                    "PREFILL_CHUNK_TOKENS": "64"})):
         env = dict(FLAGSHIP_ENV, **extra, SANDBOX=sandbox)
+        if layers is not None:
+            env["N_LAYERS"] = str(layers)
 
         def drive(port):
             replies, wall = post_waves(port, requests)
@@ -2605,18 +2685,18 @@ LONG_STEPS = 3            # bf16 sp steps; the pipeline and f32 take 2
 LONG_F32 = dict(layers=2, seq=512, batch=2, micro=2)
 
 
-def long_cases(layouts, dtype):
+def long_cases(layouts, dtype, layers=None):
     """The rank-side cases of ``layouts`` in ``dtype``: (label, kind,
     MeshSpec fields, dtype, layers, positions a rank, global batch,
-    microbatches, steps, overlap); bf16 is 15(b)'s flagship, f32
-    15(a)'s."""
+    microbatches, steps, overlap); bf16 is 15(b)'s flagship (at
+    ``layers`` layers where given), f32 15(a)'s."""
     if dtype == torch.float32:
         f = LONG_F32
         return [(label, kind, fields, dtype, f["layers"], f["seq"],
                  f["batch"], f["micro"], GANG_STEPS, lap)
                 for label, kind, fields, _, _, lap in layouts]
-    return [(label, kind, fields, dtype, int(TRAIN_ENV["N_LAYERS"]),
-             LONG_SEQ, batch, micro,
+    return [(label, kind, fields, dtype,
+             layers or int(TRAIN_ENV["N_LAYERS"]), LONG_SEQ, batch, micro,
              GANG_STEPS if kind == "pp" else LONG_STEPS, lap)
             for label, kind, fields, batch, micro, lap in layouts]
 
@@ -5522,6 +5602,600 @@ def phase_chaos(smi, watchdog):
     return {n: sum(got[n] for got in launches) for n in launches[0]}
 
 
+# -- phase 24: serving's migration and int8 paths ---------------------------
+
+# 24(a)-(b): f32 pods (TF32 off) at the flagship's width and WORKER_DEPTH
+# layers on the paged arena; 24(c)'s pod is the bf16 flagship with int8
+# weights and KV
+MIGRATION_ENV = dict(FLAGSHIP_ENV, N_LAYERS=str(WORKER_DEPTH),
+                     TORCH_DTYPE="float32", KV_PAGE_TOKENS="16",
+                     PREFILL_CHUNK_TOKENS="64")
+# new tokens a request: a session of 16 decodes in ~0.1-0.2 s on the card,
+# less than the drain takes to reach it (the worker's HTTP threads wait
+# for the interpreter lock behind its eager decode loop), so 24(a) moved
+# one session in two runs and none in two more; at 64 one lives 0.4-0.8 s
+MIGRATION_NEW = 64
+TIE_MARGIN = 1e-4         # a greedy token may flip only under this margin
+INT8_PARITY_LAYERS = 2
+INT8_PARITY_STEPS = 8     # decode steps after the prefill chunk
+# 24(c)'s card-against-CPU bound on f32 logits with int8 weights and KV:
+# f32 card-vs-CPU differences are ~1e-6 of the largest logit (13(a)),
+# and an int8 KV code that lands one step apart at a tie moves one K or
+# V element by one scale (max-abs / 127); at the flagship's width that
+# moves a logit by far less than 1e-3, which a wrong scale, a wrong
+# page or a wrong dequantize exceed by orders of magnitude
+INT8_LOGITS_ATOL = 1e-3
+DEQUANT_PART = "int8 weight dequantize"
+
+
+def migration_requests():
+    """Phase 14's prompts (cut to 300 tokens), greedy, ``MIGRATION_NEW``
+    new tokens each."""
+    return [{"tokens": [r["tokens"][0][:300]],
+             "max_new_tokens": MIGRATION_NEW}
+            for r in requests_for(32768, seed=2)]
+
+
+def start_pods(specs, root, procs):
+    """``start_pod`` for each {name: env} at once; {name: (proc, port)}.
+    Every process joins ``procs`` as it starts."""
+    pods, errors = {}, []
+
+    def one(name, env):
+        try:
+            pods[name] = start_pod(env, os.path.join(root, name), procs)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=item)
+               for item in specs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return pods
+
+
+def stop_procs(procs):
+    """Kill every process and wait for it."""
+    for proc in list(procs):
+        if proc.poll() is None:
+            proc.kill()
+    for proc in list(procs):
+        proc.wait(timeout=30)
+
+
+def generate_follow(port, request, ports):
+    """POST /generate to one pod; a 409 that names where the session
+    moved is followed with a collect there.  Returns (reply tokens,
+    the pod it moved to or None)."""
+    try:
+        return post(port, "/generate", request)["tokens"][0], None
+    except urllib.error.HTTPError as e:
+        if e.code != 409:
+            raise
+        body = json.loads(e.read())
+        moved = body.get("migrated_to")
+        if moved not in ports:
+            raise AssertionError(f"409 without a known destination: {body}")
+        reply = post(ports[moved], "/generate",
+                     {"collect": body["dest_rid"]})
+        return reply["tokens"][0], moved
+
+
+def concurrently(fn, items):
+    """``fn(item)`` for every item in threads of their own; the results
+    in order (the first failure raised)."""
+    out, errors = [None] * len(items), []
+
+    def run(i):
+        try:
+            out[i] = fn(items[i])
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(items))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if errors:
+        raise errors[0]
+    return out
+
+
+class TieJudge:
+    """Replies of the f32 pods against pod A's direct ones.  A greedy
+    token may differ only where A's run had a top-2 logit margin under
+    ``TIE_MARGIN`` at that position (the margin from ``forward`` of the
+    same weights, seed 0, in this process, over the prompt and A's
+    reply up to there); later tokens follow the flipped one."""
+
+    def __init__(self, env):
+        self.env = env
+        self.model = None
+        self.ties = []
+
+    def margin(self, prompt, reply, j):
+        from dcos_commons_tpu_torch.models import config_from_env, init_params
+        from dcos_commons_tpu_torch.models.transformer import forward
+
+        if self.model is None:
+            config = config_from_env(self.env, dtype=torch.float32,
+                                     remat=False)
+            self.model = (config, init_params(config, seed=0,
+                                              device="cuda"))
+        config, params = self.model
+        tokens = torch.tensor([list(prompt) + list(reply[:j])],
+                              device="cuda")
+        with torch.inference_mode():
+            top = forward(config, params, tokens)[0, -1].float().topk(2)
+        return (top.values[0] - top.values[1]).item()
+
+    def judge(self, tag, i, prompt, want, got):
+        if got == want:
+            return
+        if len(got) != len(want):
+            raise AssertionError(f"{tag}: reply {i} has {len(got)} tokens, "
+                                 f"A's direct one {len(want)}")
+        j = next(k for k, (a, b) in enumerate(zip(want, got)) if a != b)
+        m = self.margin(prompt, want, j)
+        log(f"{tag}: reply {i} differs from A's direct reply at token {j} "
+            f"({got[j]} against {want[j]}); A's top-2 logit margin there "
+            f"{m:.3e} (limit {TIE_MARGIN})")
+        if m >= TIE_MARGIN:
+            raise AssertionError(f"{tag}: reply {i} differs at token {j} "
+                                 f"where the margin is {m:.3e}")
+        self.ties.append((tag, i, j, m))
+
+
+def moves_logged(proc):
+    """(pages, bytes, ms) of each ``migrated session`` line a pod
+    printed (``serve/migration.py`` ``migrate_session``'s log)."""
+    out = []
+    for line in list(proc.lines):
+        if line.startswith("migrated session "):
+            tail = line.split(": ", 1)[1]
+            pages, rest = tail.split(" pages, ")
+            nbytes, ms = rest.split("B in ")
+            out.append((int(pages), int(nbytes), float(ms.strip()[:-2])))
+    return out
+
+
+def report_moves(tag, moves, smi):
+    if not moves:
+        return
+    pages = [m[0] for m in moves]
+    nbytes = [m[1] for m in moves]
+    ms = [m[2] for m in moves]
+    log(f"{tag}: {len(moves)} sessions moved, pages {min(pages)}-"
+        f"{max(pages)} ({sum(pages) / len(pages):.1f} a session), "
+        f"{sum(nbytes) / len(nbytes) / 2**20:.2f} MiB a session, "
+        f"{min(ms):.1f}-{max(ms):.1f} ms a session on the source's clock "
+        f"(mean {sum(ms) / len(ms):.1f}) ({smi})")
+
+
+def phase_migration_drain(pods, judge, direct, smi):
+    """24(a): A's live sessions moved to B through the front door's
+    ``/drain?pod=A&to=B`` while A decodes them; every reply equals A's
+    direct one."""
+    from dcos_commons_tpu_torch.router.frontdoor import RouterServer
+
+    requests = migration_requests()
+    ports = {n: port for n, (_proc, port) in pods.items()}
+    start = post(ports["A"], "/stats")
+    budget = start["kv_pages_free"] + start["kv_pages_reclaimable"]
+    # the router knows only A until A decodes, so every session is A's
+    backends = {"A": f"127.0.0.1:{ports['A']}"}
+    stub = endpoint_stub(backends)
+    router = RouterServer(f"http://127.0.0.1:{stub.server_address[1]}",
+                          endpoint="vip:inference", port=0,
+                          host="127.0.0.1", poll_interval_s=0.5,
+                          page_tokens=16, log=log)
+    router.start()
+    try:
+        before = post(router.port, "/stats")
+        replies, errors = [None] * len(requests), []
+
+        def client(i):
+            try:
+                replies[i] = post(router.port, "/generate",
+                                  requests[i])["tokens"][0]
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(requests))]
+        t0 = time.monotonic()
+        for c in clients:
+            c.start()
+        # every request reached A: B joins the router's pods now, so
+        # nothing stands between A's second decoding session and the
+        # drain but the drain itself
+        end = time.monotonic() + 60
+        admitted = start["requests_admitted"] + len(requests)
+        while post(ports["A"], "/stats")["requests_admitted"] < admitted:
+            if time.monotonic() > end:
+                raise AssertionError("24(a): A never admitted the wave")
+            time.sleep(0.002)
+        backends["B"] = f"127.0.0.1:{ports['B']}"
+        router.refresh_once()
+        while post(ports["A"], "/stats")["active_slots"] < 2:
+            if time.monotonic() > end:
+                raise AssertionError("24(a): A never decoded 2 sessions")
+            time.sleep(0.002)
+        t1 = time.monotonic()
+        drained = post(router.port, "/drain?pod=A&to=B", {})
+        drain_s = time.monotonic() - t1
+        for c in clients:
+            c.join(timeout=300)
+        wall = time.monotonic() - t0
+        if errors:
+            raise errors[0]
+        after = post(router.port, "/stats")
+    finally:
+        router.stop()
+        stub.shutdown()
+        stub.server_close()
+    report = drained.get("report", {})
+    if "error" in report or "report" not in report:
+        raise AssertionError(f"24(a): the drain failed: {drained}")
+    rows = report["report"]
+    moved = [r for r in rows if r["ok"]]
+    # a session that finished before its turn is no longer live: the
+    # only row allowed not to move
+    stayed = [r for r in rows if not r["ok"]]
+    for r in stayed:
+        if "no live session" not in r.get("error", ""):
+            raise AssertionError(f"24(a): a session did not move: {r}")
+    if not moved or any(r["dest"] != "B" for r in moved):
+        raise AssertionError(f"24(a): no session moved to B: {rows}")
+    for i, (req, got) in enumerate(zip(requests, replies)):
+        judge.judge("24(a)", i, req["tokens"][0], direct[i], got)
+    stats_a = post(ports["A"], "/stats")
+    stats_b = post(ports["B"], "/stats")
+    if stats_b["migrations_in"] != stats_a["migrations_out"] \
+            or stats_a["migrations_out"] != len(moved):
+        raise AssertionError(
+            f"24(a): B took {stats_b['migrations_in']} sessions, A gave "
+            f"{stats_a['migrations_out']}, the report moved {len(moved)}")
+    now = stats_a["kv_pages_free"] + stats_a["kv_pages_reclaimable"]
+    if now != budget:
+        raise AssertionError(f"24(a): A's free + reclaimable pages "
+                             f"{now}, {budget} before")
+    failovers = after["router_failovers"] - before["router_failovers"]
+    follows = (after["router_migration_follows"]
+               - before["router_migration_follows"])
+    if failovers or follows != len(moved):
+        raise AssertionError(f"24(a): router failovers {failovers}, "
+                             f"migration follows {follows}")
+    log(f"24(a) drain with migration: {len(requests)} routed requests in "
+        f"{wall:.3f} s, the drain call {drain_s:.3f} s: {len(moved)} "
+        f"sessions moved A -> B, {len(stayed)} finished on A before their "
+        f"turn; every reply equal to A's direct one "
+        f"({len([t for t in judge.ties if t[0] == '24(a)'])} ties); A's "
+        f"free + reclaimable pages back at {budget}; failovers 0, "
+        f"collects followed {follows} ({smi})")
+    report_moves("24(a) moves", moves_logged(pods["A"][0]), smi)
+
+
+def phase_migration_handoff(pods, judge, direct, smi):
+    """24(b): prefill pod P hands every finished prompt to decode pod D:
+    directly, and through the router, which steers long prompts to P."""
+    from dcos_commons_tpu_torch.router.frontdoor import RouterServer
+
+    requests = migration_requests()
+    ports = {n: port for n, (_proc, port) in pods.items()}
+    t0 = time.monotonic()
+    got = concurrently(
+        lambda r: generate_follow(ports["P"], r, {"D": ports["D"]}),
+        requests)
+    direct_s = time.monotonic() - t0
+    for i, (req, (reply, moved)) in enumerate(zip(requests, got)):
+        if moved != "D":
+            raise AssertionError(f"24(b): request {i} was not handed to D")
+        judge.judge("24(b) direct", i, req["tokens"][0], direct[i], reply)
+    stub = endpoint_stub({"P": f"127.0.0.1:{ports['P']}",
+                          "D": f"127.0.0.1:{ports['D']}"},
+                         roles={"P": "prefill", "D": "decode"})
+    router = RouterServer(f"http://127.0.0.1:{stub.server_address[1]}",
+                          endpoint="vip:inference", port=0,
+                          host="127.0.0.1", poll_interval_s=0.5,
+                          page_tokens=16, log=log)
+    router.start()
+    try:
+        before = post(router.port, "/stats")
+        t0 = time.monotonic()
+        routed = concurrently(
+            lambda r: post(router.port, "/generate", r)["tokens"][0],
+            requests)
+        routed_s = time.monotonic() - t0
+        after = post(router.port, "/stats")
+    finally:
+        router.stop()
+        stub.shutdown()
+        stub.server_close()
+    for i, (req, reply) in enumerate(zip(requests, routed)):
+        judge.judge("24(b) routed", i, req["tokens"][0], direct[i], reply)
+    stats_p = post(ports["P"], "/stats")
+    stats_d = post(ports["D"], "/stats")
+    n = 2 * len(requests)
+    if (stats_p.get("serving_role") != "prefill"
+            or stats_p.get("prefill_handoffs") != n
+            or stats_p.get("prefill_fallbacks") != 0
+            or stats_d["migrations_in"] != n):
+        raise AssertionError(
+            f"24(b): P role {stats_p.get('serving_role')}, handoffs "
+            f"{stats_p.get('prefill_handoffs')}, fallbacks "
+            f"{stats_p.get('prefill_fallbacks')}; D took "
+            f"{stats_d['migrations_in']} (want {n} and 0)")
+    failovers = after["router_failovers"] - before["router_failovers"]
+    follows = (after["router_migration_follows"]
+               - before["router_migration_follows"])
+    if failovers or follows != len(requests):
+        raise AssertionError(f"24(b): router failovers {failovers}, "
+                             f"migration follows {follows}")
+    log(f"24(b) prefill/decode: {len(requests)} requests to P in "
+        f"{direct_s:.3f} s and {len(requests)} through the router in "
+        f"{routed_s:.3f} s, every one handed to D (handoffs "
+        f"{stats_p['prefill_handoffs']}, fallbacks 0, P's serving_role "
+        f"prefill); every reply equal to A's direct one; failovers 0 "
+        f"({smi})")
+    report_moves("24(b) handoffs", moves_logged(pods["P"][0]), smi)
+
+
+def phase_int8_parity(smi):
+    """24(c), first: the f32 flagship width at 2 layers with int8 weights
+    and an int8 paged arena.  ``quantize_params_int8`` on the card gives
+    the CPU's codes but at rounding ties (one step apart); with the
+    CPU's codes on both, one prefill chunk and ``INT8_PARITY_STEPS``
+    decode steps on the card against the same on the CPU.  Returns the
+    largest logits error."""
+    from dcos_commons_tpu_torch.models import (
+        config_from_env,
+        init_params,
+        quantize_params_int8,
+    )
+    from dcos_commons_tpu_torch.models.decode import (
+        init_paged_kv_cache,
+        paged_decode_step,
+        paged_prefill_chunk,
+    )
+    from dcos_commons_tpu_torch.utils.tree import tree_map
+
+    def tree_to(tree, device):
+        return tree_map(lambda t: t.to(device, copy=True), tree)
+
+    config = config_from_env(
+        dict(FLAGSHIP_ENV, N_LAYERS=str(INT8_PARITY_LAYERS)),
+        dtype=torch.float32, remat=False)
+    base = init_params(config, seed=4, device="cpu")
+    prompt = np.random.default_rng(5).integers(0, config.vocab, 64)
+    pages = 1 + (64 + INT8_PARITY_STEPS + 15) // 16
+    table = np.arange(1, pages, dtype=np.int64)
+    quantized = quantize_params_int8(base)
+    # a weight on a rounding tie may take either code: one step apart
+    # (the card divides a scale by 127 through a reciprocal: its last
+    # bit may differ)
+    codes, code_step, scale_rel = 0, 0, 0.0
+    own = quantize_params_int8(tree_to(base, "cuda"))["layers"]
+    for name, leaf in quantized["layers"].items():
+        if isinstance(leaf, dict):
+            gap = (own[name]["q"].cpu().int() - leaf["q"].int()).abs()
+            codes += int(gap.gt(0).sum())
+            code_step = max(code_step, int(gap.max()))
+            scale_rel = max(scale_rel, float(
+                ((own[name]["scale"].cpu() - leaf["scale"]).abs()
+                 / leaf["scale"]).max()))
+    del own
+    if scale_rel > 1e-6:
+        raise AssertionError(f"24(c): int8 weight scales {scale_rel:.3e} "
+                             "apart card against CPU")
+    if code_step > 1:
+        raise AssertionError(f"24(c): an int8 weight code {code_step} "
+                             "steps apart card against CPU")
+    sides = {dev: (tree_to(quantized, dev),
+                   init_paged_kv_cache(config, pages, 16, "int8",
+                                       device=dev))
+             for dev in ("cuda", "cpu")}
+    err, flips, tok = 0.0, [], None
+    with torch.inference_mode():
+        for step in range(1 + INT8_PARITY_STEPS):
+            logits = {}
+            for dev, (params, cache) in sides.items():
+                if step == 0:
+                    out, _ = paged_prefill_chunk(
+                        config, params, cache,
+                        torch.as_tensor(prompt[None], device=dev),
+                        torch.as_tensor(table, device=dev), 0, len(prompt))
+                else:
+                    out, _ = paged_decode_step(
+                        config, params, cache,
+                        torch.tensor([tok], device=dev),
+                        torch.tensor([len(prompt) + step - 1], device=dev),
+                        torch.as_tensor(table[None], device=dev))
+                logits[dev] = out[0].float().cpu()
+            err = max(err, (logits["cuda"] - logits["cpu"]).abs().max().item())
+            top = logits["cpu"].topk(2)
+            tok = int(top.indices[0])
+            if int(logits["cuda"].argmax()) != tok:
+                margin = (top.values[0] - top.values[1]).item()
+                log(f"24(c) int8 parity: greedy token {step} differs card "
+                    f"against CPU; the CPU's top-2 margin {margin:.3e}")
+                if margin >= TIE_MARGIN:
+                    raise AssertionError("24(c): a greedy token differs "
+                                         "away from a tie")
+                flips.append(step)
+    if err > INT8_LOGITS_ATOL:
+        raise AssertionError(f"24(c): int8 logits {err:.3e} apart card "
+                             f"against CPU (bound {INT8_LOGITS_ATOL})")
+    kv = {k: (sides["cuda"][1][k].cpu(), sides["cpu"][1][k])
+          for k in ("k", "v")}
+    moved = {k: int((a.int() - b.int()).abs().gt(0).sum())
+             for k, (a, b) in kv.items()}
+    worst = max(int((a.int() - b.int()).abs().max()) for a, b in kv.values())
+    if worst > 1:
+        raise AssertionError(f"24(c): an int8 KV code {worst} steps apart")
+    log(f"24(c) int8 parity, f32 flagship width at {INT8_PARITY_LAYERS} "
+        f"layers, int8 weights and KV, one 64-token chunk and "
+        f"{INT8_PARITY_STEPS} decode steps: logits {err:.3e} apart card "
+        f"against CPU (bound {INT8_LOGITS_ATOL}) on the same codes; the "
+        f"card's own quantize {codes} weight codes one step apart, scales "
+        f"{scale_rel:.3e} apart; KV codes one step apart {moved} (at most 1 "
+        f"step); "
+        f"greedy tokens "
+        f"equal but at ties {flips}")
+    del sides, base, quantized
+    return err
+
+
+def dequant_scopes():
+    """The int8 weight dequantize in every module that reads weights
+    through it, for ``profile_step``."""
+    from dcos_commons_tpu_torch.models import decode, transformer
+
+    return [(decode, "dq", DEQUANT_PART), (transformer, "dq", DEQUANT_PART)]
+
+
+def pod_metrics(served, profile=False):
+    """After a served mix: ten decode steps of the whole pool (every row
+    at position 512, its own pages; host clock around synchronised
+    steps), the KV bytes a step's page gather reads from the arena's
+    dtypes, the peak memory since the server's build ended; with
+    ``profile``, one more step under the profiler and its dequantize's
+    device ms."""
+    pool = served.pool
+    n, ppr = pool.slots, pool.pages_per_row
+    args = [np.zeros(n, np.int32), np.full(n, 512, np.int32),
+            np.zeros(n, np.float32), np.zeros(n, np.int32),
+            (1 + np.arange(n)[:, None] * ppr
+             + np.arange(ppr)[None]).astype(np.int32)]
+    for _ in range(3):
+        pool.decode(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GANG_DECODE_STEPS):
+        pool.decode(*args)
+    torch.cuda.synchronize()
+    out = dict(
+        decode_ms=(time.perf_counter() - t0) * 1e3 / GANG_DECODE_STEPS,
+        peak_gib=torch.cuda.max_memory_allocated() / GIB,
+        kv_dtypes={k: str(a.dtype) for k, a in pool.cache.items()},
+        # the step gathers every row's whole table, page by page
+        kv_bytes_step=n * ppr * sum(a[:, 0].nbytes
+                                    for a in pool.cache.values()),
+    )
+    if profile:
+        split = profile_step(lambda: pool.decode(*args),
+                             scopes=dequant_scopes())
+        out["dequant_ms"] = split.get(DEQUANT_PART, 0.0)
+    return out
+
+
+def report_pod_metrics(label, replies, stats, wall, m, smi):
+    n_tok = sum(len(r["tokens"][0]) for r in replies)
+    log(f"{label}: {n_tok / wall:.1f} tok/s, ttft p50 "
+        f"{stats.get('ttft_p50_s')} s p95 {stats.get('ttft_p95_s')} s, "
+        f"decode step {m['decode_ms']:.2f} ms (8 rows at 512), peak "
+        f"{m['peak_gib']:.3f} GiB serving ({m['build_peak_gib']:.3f} GiB "
+        f"in the build), KV {m['kv_bytes_step'] / 2**20:.1f} MiB "
+        f"a step ({m['kv_dtypes']})"
+        + (f", dequantize {m['dequant_ms']:.3f} ms of the profiled step"
+           if "dequant_ms" in m else "") + f" ({smi})")
+
+
+def phase_migration(smi, sandbox, logs, watchdog, paged_run):
+    """24: (a) drain with migration and (b) disaggregated prefill/decode
+    over serve-worker processes on the card, (c) the int8 paths: the
+    card against the CPU, then the int8 flagship pod over phase 4's mix
+    beside phase 4's native run (``paged_run``: its replies, /stats,
+    wall seconds).  Returns (K1-K4 launches of the pods and of (c)'s
+    pod, the largest K1 error at the f32 pods' shapes)."""
+    root = os.path.join(sandbox, "migration")
+    shutil.rmtree(root, ignore_errors=True)
+    env = MIGRATION_ENV
+    procs = []
+
+    def kill_all():
+        stop_procs(procs)
+
+    watchdog.cleanups.append(kill_all)
+    try:
+        # P names D's port before D is up: every pod starts at once,
+        # and all are up before any is timed
+        d_port = free_port()
+        pods = start_pods({
+            "A": env, "B": env,
+            "D": dict(env, SERVE_ROLE="decode", PORT_HTTP=str(d_port)),
+            "P": dict(env, SERVE_ROLE="prefill",
+                      SERVE_DECODE_PODS=f"D=127.0.0.1:{d_port}"),
+        }, root, procs)
+        if pods["D"][1] != d_port:
+            raise AssertionError(f"24: D bound {pods['D'][1]}, not the "
+                                 f"port {d_port} P names")
+        base = {n: post(port, "/stats")["kernel_launches"]
+                for n, (_proc, port) in pods.items()}
+        judge = TieJudge(env)
+        t0 = time.monotonic()
+        direct = [post(pods["A"][1], "/generate", r)["tokens"][0]
+                  for r in migration_requests()]
+        log(f"24(a) A's direct replies: {len(direct)} requests one at a "
+            f"time in {time.monotonic() - t0:.3f} s ({smi})")
+        phase_migration_drain(pods, judge, direct, smi)
+        watchdog.phase("24(b) prefill/decode handoff", 150)
+        phase_migration_handoff(pods, judge, direct, smi)
+        launches = {n: 0 for n in ("K1", "K2", "K3", "K4")}
+        for name, (_proc, port) in pods.items():
+            got = post(port, "/stats")["kernel_launches"]
+            delta = {k: got[k] - base[name][k] for k in launches}
+            log(f"24 pod {name} launches {delta}")
+            if delta["K1"] == 0 or delta["K2"] or delta["K3"] or delta["K4"]:
+                raise AssertionError(f"24: pod {name} kernels {delta}")
+            for k in launches:
+                launches[k] += delta[k]
+    finally:
+        watchdog.cleanups.remove(kill_all)
+        kill_all()
+    log(f"24(a)-(b) ties logged {judge.ties}; every pod stopped")
+    shutil.rmtree(root, ignore_errors=True)
+    del judge
+    torch.cuda.empty_cache()
+
+    watchdog.phase("24(c) int8", 150)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    # the f32 pods' K1 shapes: 64-row chunks, the 44-row tail of a
+    # 300-token prompt, the last position, the 8-row decode step
+    k1_err = 0.0
+    for rows in (1, 8, 44, 64):
+        r = k1_case(rows, 2048, torch.float32, gen)
+        k1_err = max(k1_err, r["err"])
+        log(f"K1 at a 24 pod's shape [{rows}, 2048] f32: {fmt_k1(r)}")
+    phase_int8_parity(smi)
+    int8_env = dict(FLAGSHIP_ENV, KV_PAGE_TOKENS="16",
+                    PREFILL_CHUNK_TOKENS="64", KV_DTYPE="int8",
+                    WEIGHT_DTYPE="int8", SANDBOX=sandbox)
+    requests = requests_for(32768)
+    replies, found, stats, wall = serve(
+        int8_env, requests, logs,
+        measure=lambda served: pod_metrics(served, profile=True))
+    report_serving("24(c) int8 pod", replies, found, stats, wall)
+    if (found["K1"] == 0 or found["K2"] or found["K3"] or found["K4"]):
+        raise AssertionError(f"24(c) int8 pod kernels: {found}")
+    if stats["measured"]["dequant_ms"] <= 0:
+        raise AssertionError("24(c): the profiled step shows no dequantize")
+    n_replies, n_stats, n_wall = paged_run
+    report_pod_metrics("24(c) 4's native paged pod (bf16 weights and KV)",
+                       n_replies, n_stats, n_wall, n_stats["measured"], smi)
+    report_pod_metrics("24(c) int8 pod (bf16, 12 layers, int8 weights and "
+                       "KV)", replies, stats, wall, stats["measured"], smi)
+    for k in launches:
+        launches[k] += found[k]
+    return launches, k1_err
+
+
 def phase_placed_gang(smi):
     """18(b), ``--nccl-gang`` on four cards: the trainer (one host of 4
     cards, topology 2x2) placed on this 4-card host trains from the
@@ -5718,8 +6392,10 @@ def main():
     watchdog.phase("4 paged serving", 300)
     env = dict(FLAGSHIP_ENV, KV_PAGE_TOKENS="16",
                PREFILL_CHUNK_TOKENS="64", SANDBOX=sandbox)
-    paged_replies, paged_launches, stats, wall = serve(env, requests, logs)
+    paged_replies, paged_launches, stats, wall = serve(
+        env, requests, logs, measure=pod_metrics)
     report_serving("paged", paged_replies, paged_launches, stats, wall)
+    paged_run = (paged_replies, stats, wall)
     if (paged_launches["K1"] == 0 or paged_launches["K2"]
             or paged_launches["K3"] or paged_launches["K4"]):
         raise AssertionError(f"paged path kernels: {paged_launches}")
@@ -5801,7 +6477,7 @@ def main():
         shapes.update(logs[n].shapes)
     watchdog.phase("12b two processes over gloo", 600)
     gang_two_launches, gang_two_shapes = phase_gang(
-        "12(b)", 2, "gloo", GANG_LAYOUTS, 540)
+        "12(b)", 2, "gloo", GANG_LAYOUTS, 540, layers=GANG_LAYERS_ONE_CARD)
     # phase 13: the serving gang.  (a) f32 at 2 layers against one
     # process; (b) the bf16 flagship at full width over the mix, on both
     # pools, with phase 14 (the router in front of the gang and a single
@@ -5810,7 +6486,8 @@ def main():
     phase_gang_f32(sandbox)
     watchdog.phase("13b serving gang, slot", 600)
     serve_gang_launches, serve_gang_shapes = phase_gang_serving(
-        "13(b)", 2, "gloo", sandbox, True, watchdog)
+        "13(b)", 2, "gloo", sandbox, True, watchdog,
+        layers=GANG_LAYERS_ONE_CARD)
     watchdog.phase("13b K1 and K2 at the gang's shapes", 300)
     for name, err in check_gang_shapes(serve_gang_shapes, gen).items():
         errs[name] = max(errs[name], err)
@@ -5820,7 +6497,7 @@ def main():
     watchdog.phase("15 long context", 300)
     long_counts, long_shapes = phase_long(
         "15", 2, "gloo", long_cases(LONG_LAYOUTS, torch.float32)
-        + long_cases(LONG_LAYOUTS, torch.bfloat16), 280)
+        + long_cases(LONG_LAYOUTS, torch.bfloat16, WORKER_DEPTH), 280)
     # phase 16: the MNIST job, (a) as the scheduler launches it, (b) the
     # MLP card against CPU and its step timed; it runs none of K1-K4
     watchdog.phase("16 MNIST job", 300)
@@ -5871,6 +6548,13 @@ def main():
     # workers' and the checked deploy's, read from their sandboxes)
     watchdog.phase("23 the scheduler killed at every span boundary", 300)
     chaos_launches = phase_chaos(smi, watchdog)
+    # phase 24: serving's migration (drain, prefill/decode handoff) over
+    # serve-worker processes, then the int8 paths (the launches are the
+    # pods' own counters and the in-process int8 pod's)
+    watchdog.phase("24(a) drain with migration", 150)
+    migration_launches, k1_err = phase_migration(smi, sandbox, logs,
+                                                 watchdog, paged_run)
+    errs["K1"] = max(errs["K1"], k1_err)
     launches = {n: entry_launches[n] + slot_launches[n] + paged_launches[n]
                 + train_launches[n]
                 + moe_launches[n] + moe_train_launches[n]
@@ -5878,7 +6562,8 @@ def main():
                 + serve_gang_launches[n] + long_counts[n]
                 + placed_launches[n] + planned_launches[n]
                 + scheduled_launches[n] + served_launches[n]
-                + distributed_launches[n] + chaos_launches[n] for n in logs}
+                + distributed_launches[n] + chaos_launches[n]
+                + migration_launches[n] for n in logs}
     for n in logs:
         train_shapes[n] |= (moe_train_shapes[n] | gang_two_shapes[n]
                             | long_shapes[n])

@@ -15,9 +15,12 @@ paths: the paged arena by default, the slot pool with
 
 ``TORCH_DEVICE`` (default ``cuda``) picks the device, the counterpart
 of the JAX worker's ``JAX_PLATFORMS=cpu`` switch: bf16 on the card,
-f32 on the CPU; a MoE router stays f32 on both, and under
-``WEIGHT_DTYPE=int8``.  Without CUDA and without ``TORCH_DEVICE=cpu``
-the worker fails to start.  Weights are random from seed 0, or, with
+f32 on the CPU (``TORCH_DTYPE=float32`` or ``bfloat16`` sets it); a
+MoE router stays f32 on both, and under ``WEIGHT_DTYPE=int8``.  Without
+CUDA and without ``TORCH_DEVICE=cpu`` the worker fails to start.
+``/stats`` also carries ``kernel_launches`` (K1-K4 in this process) and,
+on a prefill pod that hands off, ``prefill_handoffs`` and
+``prefill_fallbacks``.  Weights are random from seed 0, or, with
 ``CHECKPOINT_DIR``, the params of the train worker's latest checkpoint
 (either package's: the file format is shared).
 
@@ -104,6 +107,21 @@ def serving_params(env: Mapping[str, str], config, device,
     return params
 
 
+def serving_dtype(env: Mapping[str, str], device):
+    """The compute dtype: ``TORCH_DTYPE`` (``bfloat16`` or ``float32``)
+    where it is set, else bf16 on the card and f32 on the CPU."""
+    import torch
+
+    name = (env.get("TORCH_DTYPE") or "").strip()
+    if not name:
+        return torch.bfloat16 if device.type == "cuda" else torch.float32
+    if name not in ("bfloat16", "float32"):
+        raise ValueError(
+            f"TORCH_DTYPE must be bfloat16 or float32, got {name!r}"
+        )
+    return getattr(torch, name)
+
+
 def build_server(env: Mapping[str, str],
                  log: Callable[[str], None] = print,
                  ready_file: str = "ready") -> Served:
@@ -115,13 +133,12 @@ def build_server(env: Mapping[str, str],
     from dcos_commons_tpu_torch.device import resolve_device
     from dcos_commons_tpu_torch.metrics.registry import Metrics
     from dcos_commons_tpu_torch.models import config_from_env
+    from dcos_commons_tpu_torch.ops import kernel_launches
     from dcos_commons_tpu_torch.serve.pool import PagedPoolModel, PoolModel
 
     device = resolve_device(env.get("TORCH_DEVICE") or "cuda")
     config = config_from_env(
-        env,
-        dtype=torch.bfloat16 if device.type == "cuda" else torch.float32,
-        remat=False,
+        env, dtype=serving_dtype(env, device), remat=False,
     )
     max_len = int(env.get("MAX_LEN", "256"))
     # unset SERVE_BATCH means a bare/dev launch: one request
@@ -147,7 +164,11 @@ def build_server(env: Mapping[str, str],
             if self.path.split("?")[0] != "/stats":
                 self.send_error(404)
                 return
-            payload = json.dumps(engine.stats()).encode()
+            stats = dict(engine.stats(), kernel_launches=kernel_launches())
+            if handoff is not None:
+                stats["prefill_handoffs"] = handoff.handoffs
+                stats["prefill_fallbacks"] = handoff.fallbacks
+            payload = json.dumps(stats).encode()
             self.send_response(200)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(payload)))
@@ -322,9 +343,9 @@ def build_server(env: Mapping[str, str],
             "instead (advertised via servestats)")
     bound_port = int(server.server_address[1])
 
+    handoff = None
     if paged is not None:
         role = (env.get("SERVE_ROLE") or "").strip() or "unified"
-        handoff = None
         if role == "prefill":
             decode_pods = {}
             for item in env.get("SERVE_DECODE_PODS", "").split(","):

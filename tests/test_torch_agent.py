@@ -143,7 +143,15 @@ def _run_task(pkg, workdir, name):
         agent.kill(info.task_id, end[1])
     _statuses_until_terminal(agent, info.task_id, seen=statuses)
     agent.shutdown()
-    with open(os.path.join(sandbox, "stdout")) as f:
+    # the supervisor's task side opens stdout after its fork: a task
+    # killed at once may reach its terminal status before the file
+    # exists, so wait for it
+    path = os.path.join(sandbox, "stdout")
+    end_t = time.monotonic() + 10
+    while not os.path.exists(path):
+        assert time.monotonic() < end_t, f"{name}: no stdout in {sandbox}"
+        time.sleep(0.02)
+    with open(path) as f:
         stdout = f.read()
     return [(s.state.name, s.ready, s.message) for s in statuses], stdout
 

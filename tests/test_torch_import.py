@@ -374,13 +374,16 @@ CONTROL_PLANE = (
     "dcos_commons_tpu_torch.tools.registry",
     "dcos_commons_tpu_torch.testing.integration",
     "dcos_commons_tpu_torch.testing.diagnostics",
+    "dcos_commons_tpu_torch.frameworks.cassandra_scheduler",
+    "dcos_commons_tpu_torch.frameworks.hdfs_scheduler",
 )
 
 
 def test_control_plane_imports_without_torch():
-    """``serve``, ``cli``, ``agent``, ``state-server`` and ``package``
-    need no card and no torch: a host without it runs the scheduler
-    process, an agent daemon or a state server."""
+    """``serve``, ``cli``, ``agent``, ``state-server``, ``package`` and
+    the cassandra and hdfs schedulers need no card and no torch: a host
+    without it runs the scheduler process, an agent daemon or a state
+    server."""
     out = subprocess.run(
         [sys.executable, "-c", _NO_TORCH, REPO, *CONTROL_PLANE],
         capture_output=True, text=True, timeout=120, cwd=REPO,
