@@ -62,6 +62,7 @@ from dcos_commons_tpu_torch.parallel.sharding import (
     reduce_from,
     vocab_parallel_embed,
 )
+from dcos_commons_tpu_torch.trace.ranges import profiled
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
@@ -113,9 +114,11 @@ def _embed(params, tokens, mesh):
 
 def _full_logits(config, params, x, mesh) -> torch.Tensor:
     """f32 logits ``[..., vocab]``: under tp each rank's block of the
-    vocabulary, all-gathered."""
-    return gather(_logits(config, params, x, mesh, params["embed"]), -1,
-                  mesh, TP)
+    vocabulary, all-gathered.  Runs in the profiler range
+    ``trunk.head``."""
+    with profiled("trunk.head"):
+        return gather(_logits(config, params, x, mesh, params["embed"]), -1,
+                      mesh, TP)
 
 
 def _empty_cache(config: TransformerConfig, shape, kv_dtype: str,
@@ -330,7 +333,10 @@ def _decode_trunk(config, params, cache, tokens, positions, store, view,
     """Shared layer loop of the cached paths: embed ``tokens``, project,
     ``store(i, name, value)`` the new K/V, ``view(i, name)`` the attended
     [b, L, ...] cache view, attend, FFN.  Returns the final hidden
-    states."""
+    states.  Each layer's phases run in the profiler ranges
+    ``trunk.project``, ``trunk.kv_write``, ``trunk.kv_gather`` (the
+    cache view: the paged paths' whole-table gather), ``trunk.attend``
+    and ``trunk.ffn`` (``wo`` and the FFN block)."""
     check_serving_mesh(config, mesh)
     quantized = "k_scale" in cache
     kv_map = _kv_map(config, mesh, tokens.device)
@@ -341,18 +347,24 @@ def _decode_trunk(config, params, cache, tokens, positions, store, view,
 
     x = _embed(params, tokens, mesh).to(config.dtype)
     for i in range(config.n_layers):
-        layer = layer_params(params["layers"], i)
-        q, k_new, v_new = _project(config, layer, x, positions, mesh)
-        for name, val in _kv_entries(cache, k_new, v_new):
-            store(i, name, val)
-        scales = (
-            (read(i, "k_scale")[..., 0], read(i, "v_scale")[..., 0])
-            if quantized else (None, None)
-        )
-        attn = _attend(config, q, read(i, "k"), read(i, "v"), valid,
-                       *scales)
-        x = x + reduce_from(attn @ dq(layer["wo"], x.dtype), mesh, TP)
-        x, _ = _ffn_block(config, layer, x, decode=True, mesh=mesh)
+        with profiled("trunk.project"):
+            layer = layer_params(params["layers"], i)
+            q, k_new, v_new = _project(config, layer, x, positions, mesh)
+        with profiled("trunk.kv_write"):
+            for name, val in _kv_entries(cache, k_new, v_new):
+                store(i, name, val)
+        with profiled("trunk.kv_gather"):
+            k_all, v_all = read(i, "k"), read(i, "v")
+            scales = (
+                (read(i, "k_scale")[..., 0], read(i, "v_scale")[..., 0])
+                if quantized else (None, None)
+            )
+        with profiled("trunk.attend"):
+            attn = _attend(config, q, k_all, v_all, valid, *scales)
+        del k_all, v_all, scales  # free the gathered tables before the FFN
+        with profiled("trunk.ffn"):
+            x = x + reduce_from(attn @ dq(layer["wo"], x.dtype), mesh, TP)
+            x, _ = _ffn_block(config, layer, x, decode=True, mesh=mesh)
     return x
 
 

@@ -53,6 +53,7 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
+from dcos_commons_tpu_torch.trace.ranges import profiled
 from dcos_commons_tpu_torch.utils.microbatch import QueueTimeoutError
 
 SERVESTATS_NAME = "servestats.json"
@@ -398,7 +399,7 @@ class SlotEngine:
             idle = False
             flush_now = False
             admits: List[_Row] = []
-            with self._cv:
+            with profiled("engine.schedule"), self._cv:
                 self._last_tick_mono = time.monotonic()
                 while not self._has_work_locked() and not self._stopped:
                     if not flushed_idle:
@@ -432,7 +433,8 @@ class SlotEngine:
                 self._safe_idle()
                 continue
             try:
-                self._work_tick(admits)
+                with profiled("engine.tick"):
+                    self._work_tick(admits)
                 self._write_stats()
             except Exception as e:  # noqa: BLE001 — fail FAST, not silent
                 # a bookkeeping bug (bad decode shape, broken stats
@@ -825,13 +827,18 @@ class PagedEngine(SlotEngine):
         return admits
 
     def _work_tick(self, admits: List[_Row]) -> None:
+        """Page jobs, a chunk of every prefilling row, then one decode
+        step over the pool: the last two in the profiler ranges
+        ``engine.prefill`` and ``engine.decode``."""
         self._run_page_io()
         if admits:
             with self._cv:
                 self._prefilling.extend(admits)
-        self._prefill_tick()
+        with profiled("engine.prefill"):
+            self._prefill_tick()
         if self._active:
-            self._decode_tick()
+            with profiled("engine.decode"):
+                self._decode_tick()
 
     def _run_page_io(self) -> None:
         """Drain queued migration page reads/writes (loop thread,

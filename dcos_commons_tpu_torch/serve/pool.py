@@ -50,6 +50,7 @@ from dcos_commons_tpu_torch.models.decode import (
     sample_token,
 )
 from dcos_commons_tpu_torch.serve.paging import pages_for
+from dcos_commons_tpu_torch.trace.ranges import profiled
 
 
 def _generator(seed: int, pos: int, device) -> torch.Generator:
@@ -61,14 +62,16 @@ def _generator(seed: int, pos: int, device) -> torch.Generator:
 
 def _pick_rows(logits, temps, seeds, pos) -> np.ndarray:
     """Per-row next tokens: argmax for greedy rows, a draw from the
-    row's (seed, pos) stream for sampling rows."""
-    out = logits.argmax(dim=-1)
-    for row in np.flatnonzero(np.asarray(temps) > 0.0):
-        out[row] = sample_token(
-            logits[row], float(temps[row]),
-            _generator(seeds[row], pos[row], logits.device),
-        )
-    return out.to(torch.int32).cpu().numpy()
+    row's (seed, pos) stream for sampling rows.  The copy to the host
+    waits for the card."""
+    with profiled("pool.sample"):
+        out = logits.argmax(dim=-1)
+        for row in np.flatnonzero(np.asarray(temps) > 0.0):
+            out[row] = sample_token(
+                logits[row], float(temps[row]),
+                _generator(seeds[row], pos[row], logits.device),
+            )
+        return out.to(torch.int32).cpu().numpy()
 
 
 class PoolModel:
@@ -161,16 +164,19 @@ class PagedPoolModel:
         prompt's final chunk).  ``slot`` is the engine's row id, a
         protocol rider: the math needs only the table."""
         del slot
-        toks = torch.as_tensor(
-            np.asarray(tokens, np.int64)[:, :true_len], device=self.device
-        )
-        logits, self.cache = paged_prefill_chunk(
-            self.config, self.params, self.cache, toks,
-            torch.as_tensor(np.asarray(table, np.int64), device=self.device),
-            start, true_len, self.mesh,
-        )
-        return int(_pick_rows(logits, [temp], [seed],
-                              [start + true_len - 1])[0])
+        with profiled("pool.prefill_chunk"):
+            toks = torch.as_tensor(
+                np.asarray(tokens, np.int64)[:, :true_len],
+                device=self.device,
+            )
+            logits, self.cache = paged_prefill_chunk(
+                self.config, self.params, self.cache, toks,
+                torch.as_tensor(np.asarray(table, np.int64),
+                                device=self.device),
+                start, true_len, self.mesh,
+            )
+            return int(_pick_rows(logits, [temp], [seed],
+                                  [start + true_len - 1])[0])
 
     @torch.inference_mode()
     def decode(self, tok: np.ndarray, pos: np.ndarray, temps: np.ndarray,
@@ -178,16 +184,18 @@ class PagedPoolModel:
                n_active: Optional[int] = None) -> np.ndarray:
         """One decode step over the whole pool through per-row page
         tables."""
-        pos = np.asarray(pos, np.int64)
-        logits, self.cache = paged_decode_step(
-            self.config, self.params, self.cache,
-            torch.as_tensor(np.asarray(tok, np.int64), device=self.device),
-            torch.as_tensor(pos, device=self.device),
-            torch.as_tensor(np.asarray(tables, np.int64),
-                            device=self.device),
-            self.mesh,
-        )
-        return _pick_rows(logits, temps, seeds, pos)
+        with profiled("pool.decode"):
+            pos = np.asarray(pos, np.int64)
+            logits, self.cache = paged_decode_step(
+                self.config, self.params, self.cache,
+                torch.as_tensor(np.asarray(tok, np.int64),
+                                device=self.device),
+                torch.as_tensor(pos, device=self.device),
+                torch.as_tensor(np.asarray(tables, np.int64),
+                                device=self.device),
+                self.mesh,
+            )
+            return _pick_rows(logits, temps, seeds, pos)
 
     def export_page(self, page: int) -> dict:
         """Snapshot one physical page as host numpy, every cache key

@@ -1,8 +1,9 @@
-"""Tracing: worker-side step telemetry (``steplog``) and the control
+"""Tracing: worker-side step telemetry (``steplog``), the control
 plane's spans and flight recorder (``span``, ``recorder``; ports of the
 JAX package's, which the offer evaluator records into) and their
 exporters (``export``: plain text and Chrome trace JSON, served at
-``GET /v1/debug/trace``)."""
+``GET /v1/debug/trace``), and the serving path's profiler ranges
+(``ranges``: ``profiled``, read from a device trace)."""
 
 from dcos_commons_tpu_torch.trace.export import chrome_json, to_chrome, to_text
 from dcos_commons_tpu_torch.trace.recorder import (
@@ -10,6 +11,7 @@ from dcos_commons_tpu_torch.trace.recorder import (
     LaunchRef,
     TraceRecorder,
 )
+from dcos_commons_tpu_torch.trace.ranges import profiled
 from dcos_commons_tpu_torch.trace.span import NullSpan, Span
 from dcos_commons_tpu_torch.trace.steplog import (
     STEPLOG_NAME,
@@ -28,6 +30,7 @@ __all__ = [
     "StepLog",
     "TraceRecorder",
     "chrome_json",
+    "profiled",
     "read_steplog",
     "to_chrome",
     "to_text",
